@@ -1,4 +1,4 @@
-"""Independent-solver timing comparison (round-4 verdict Missing #3).
+"""Independent-solver timing comparison.
 
 The reference benchmarks against LSSOL / QLD / eigen-quadprog / eiquadprog
 (ref: benchmarks/problemAdaptors.h:10-65); none of those (nor OSQP /
@@ -7,36 +7,31 @@ independent optimizer available is scipy.optimize (SLSQP) -- a general
 sequential-least-squares NLP method, NOT a tuned dense QP code -- so this
 capture times it on the same random strictly-convex QPs as the headline
 bench, on the host CPU, purely as an order-of-magnitude anchor. Solutions
-are cross-checked against the library's f64 engine. Writes
-benchmarks/out/competitor.json and stages it in git.
+are cross-checked against the library's f64 engine. Prints one JSON row
+and writes it to the path given as the first argument, if any.
 """
 import json
 import os
-import subprocess
 import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+from scipy import optimize  # noqa: E402
 
-jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_default_device", jax.devices("cpu")[0])
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-
-import numpy as np
-from scipy import optimize
-
-from jrlqp_tpu import SolverOptions, solve
-from jrlqp_tpu.testing.batch_gen import random_qp_batch
+from jrlqp_tpu import SolverOptions, solve  # noqa: E402
+from jrlqp_tpu.testing.batch_gen import random_qp_batch  # noqa: E402
+from jrlqp_tpu.utils.cache import enable_compile_cache  # noqa: E402
 
 N, M = 50, 100
 COUNT = int(os.environ.get("COMP_COUNT", "16"))
 
 
 def main():
+    enable_compile_cache()
+    jax.config.update("jax_default_device", jax.devices("cpu")[0])
     pbs = random_qp_batch(jax.random.key(0), COUNT, N, M, act_frac=0.3)
     G = np.asarray(pbs.G)
     a = np.asarray(pbs.a)
@@ -82,22 +77,16 @@ def main():
         scipy_slsqp_us_per_solve=float(np.mean(times) * 1e6),
         scipy_success=n_ok / COUNT,
         max_rel_obj_diff_vs_f64_engine=max_obj_diff,
-        note=("scipy SLSQP is a general NLP method on the 2-core host CPU, "
-              "not a tuned QP code; the reference's competitor set "
+        note=("scipy SLSQP is a general NLP method on the host CPU, not a "
+              "tuned QP code; the reference's competitor set "
               "(LSSOL/QLD/eigen-quadprog/eiquadprog) and common QP packages "
-              "(OSQP/quadprog/qpsolvers/cvxpy) are NOT installable in this "
-              "image, so this row is an order-of-magnitude anchor only. "
-              "Compare: the Pallas engine's TPU headline is ~23 us/solve "
-              "at batch 16384 (bench.py / BENCH_r05)."),
+              "(OSQP/quadprog/qpsolvers/cvxpy) are not installed, so this "
+              "row is an order-of-magnitude anchor only."),
     )
     print(json.dumps(out))
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "out", "competitor.json")
-    with open(path, "w") as fh:
-        json.dump(out, fh, indent=2)
-    subprocess.run(["git", "add", path],
-                   cwd=os.path.dirname(os.path.dirname(
-                       os.path.abspath(__file__))), check=False)
+    if len(sys.argv) > 1:
+        with open(sys.argv[1], "w") as fh:
+            json.dump(out, fh, indent=2)
 
 
 if __name__ == "__main__":

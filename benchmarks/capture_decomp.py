@@ -1,72 +1,49 @@
-"""Batched + horizon-sweep decomposition capture (round-4 verdict #6).
+"""Batched + horizon-sweep decomposition capture.
 
-Measures the fused Pallas blocked LLT kernels against the dense f32 XLA
-Cholesky at real batch sizes and longer horizons -- the regime where the
-O(nb s^3) vs O(n^3) asymptotics bite (the MPC case the reference's
-structured layer targets, ref src/decomposition/triBlockDiagLLT.cpp:9-35
-and its [OPTIM] parallelization notes). Merges rows into
-benchmarks/out/decomposition.json and stages the file in git.
+Times the XLA blocked LLT chains (block-tridiagonal and block-arrow)
+against the dense Cholesky at real batch sizes and longer horizons -- the
+regime where the O(nb s^3) vs O(n^3) asymptotics bite (the MPC case the
+reference's structured layer targets, ref
+src/decomposition/triBlockDiagLLT.cpp:9-35). Prints one JSON row per
+measurement and appends them to ``--out`` if given. Run on the GPU:
 
-Configs (override with DECOMP_CONFIGS="nb,s,batch;..."):
-    nb=9  s=48 batch=16   -- the historical row (IK fixture scale)
+    python benchmarks/capture_decomp.py [--configs "nb,s,batch;..."]
+
+Default configs:
+    nb=9  s=48 batch=16   -- IK fixture scale
     nb=9  s=48 batch=128  -- batched
     nb=16 s=32 batch=128  -- longer horizon
     nb=32 s=32 batch=64   -- MPC-length horizon (n=1024)
 """
+import argparse
 import json
 import os
-import subprocess
 import sys
 
-sys.setrecursionlimit(100_000)
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-
-jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
 from jrlqp_tpu.bench.harness import bench_decompositions  # noqa: E402
+from jrlqp_tpu.utils.cache import enable_compile_cache  # noqa: E402
 
 DEFAULT = "9,48,16;9,48,128;16,32,128;32,32,64"
-CONFIGS = [tuple(int(v) for v in c.split(","))
-           for c in os.environ.get("DECOMP_CONFIGS", DEFAULT).split(";")]
 
 
 def main():
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "out", "decomposition.json")
-    rows = []
-    for nb, s, batch in CONFIGS:
-        # f64 rows only at the historical small scale (B n^2 doubles)
-        include_f64 = nb * s <= 432 and batch <= 16
-        try:
-            got = bench_decompositions(nb=nb, s=s, batch=batch,
-                                       include_f64=include_f64)
-        except Exception as e:  # noqa: BLE001 -- keep the sweep going
-            print(f"# config nb={nb} s={s} batch={batch} lost: "
-                  f"{str(e)[:200]}", file=sys.stderr)
-            continue
-        for r in got:
-            print(json.dumps(r))
-        rows += got
-        merged = list(rows)
-        if os.path.exists(path):
-            try:
-                old = json.load(open(path))
-                names = {r["name"] for r in merged}
-                # legacy rows had no /batch= suffix; keep them only if not
-                # superseded by a same-config row
-                merged += [r for r in old if r.get("name") not in names]
-            except Exception:
-                pass
-        with open(path, "w") as fh:  # land partial results immediately
-            json.dump(sorted(merged, key=lambda r: r["name"]), fh, indent=2)
-        subprocess.run(["git", "add", path], cwd=os.path.dirname(
-            os.path.dirname(os.path.abspath(__file__))), check=False)
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--configs", default=DEFAULT)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    enable_compile_cache()
+    for c in args.configs.split(";"):
+        nb, s, batch = (int(v) for v in c.split(","))
+        # f64 rows only at the small scale (B n^2 doubles)
+        rows = bench_decompositions(nb=nb, s=s, batch=batch,
+                                    include_f64=nb * s <= 432 and batch <= 16)
+        for r in rows:
+            print(json.dumps(r), flush=True)
+            if args.out:
+                with open(args.out, "a") as fh:
+                    fh.write(json.dumps(r) + "\n")
 
 
 if __name__ == "__main__":

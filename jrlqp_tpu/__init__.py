@@ -1,4 +1,4 @@
-"""jrlqp_tpu -- TPU-native strictly-convex dense QP solver framework.
+"""jrlqp_tpu -- batched strictly-convex dense QP solver framework.
 
 A from-scratch JAX / XLA / Pallas re-design with the capabilities of the
 jrl-qp reference library (Goldfarb-Idnani dual active-set method): dense and
@@ -16,10 +16,11 @@ import jax as _jax
 if not _os.environ.get("JRLQP_TPU_NO_X64"):
     _jax.config.update("jax_enable_x64", True)
 
-# On TPU the default matmul precision for float32 operands is reduced
-# (bfloat16 passes); the GI iteration's dual-step arithmetic and the
-# iterative-refinement corrections need true float32 contractions. Set
-# JRLQP_TPU_MATMUL_PRECISION to override (e.g. "default" to opt out).
+# On the GPU a float32 contraction may run in TF32 (about three decimal
+# digits) unless a higher precision is asked for; the init's Cholesky and
+# operator products and the iterative-refinement corrections need true
+# float32 contractions. Set JRLQP_TPU_MATMUL_PRECISION to override (e.g.
+# "default" to opt out).
 _jax.config.update(
     "jax_default_matmul_precision",
     _os.environ.get("JRLQP_TPU_MATMUL_PRECISION", "float32"),

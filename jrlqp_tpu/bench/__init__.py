@@ -8,6 +8,10 @@ from .harness import (
     bench_warm_start_trajectory,
     bench_box_single,
     bench_scaling,
+    device_info,
+    gpu_name_and_power,
+    ik_batch,
+    require_gpu,
     time_batch,
 )
 
@@ -20,5 +24,9 @@ __all__ = [
     "bench_size_sweep",
     "bench_structured_ik",
     "bench_warm_start_trajectory",
+    "device_info",
+    "gpu_name_and_power",
+    "ik_batch",
+    "require_gpu",
     "time_batch",
 ]

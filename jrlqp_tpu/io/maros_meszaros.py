@@ -258,6 +258,7 @@ def run_corpus(
     engine: str = "f64",
     parser_engine: str = "auto",
     ir_steps: int = 4,
+    interpret: bool = False,
 ):
     """Solve the filtered corpus, checking objective vs f* and KKT
     (ref: GoldfarbIdnaniSolverTest.cpp:221-310). Returns a list of dicts.
@@ -266,16 +267,17 @@ def run_corpus(
     ``.SIF``/``.qps``). Problems whose file is missing are reported with
     status "missing".
 
-    ``bucketed=True`` (the TPU execution model, BASELINE config 3) groups
+    ``bucketed=True`` (the batched execution model, BASELINE config 3) groups
     problems by padded shape buckets (:func:`_bucket_dim` grid), pads each
     bucket to a common (n, m), and solves each bucket as ONE batched call
     -- one compile per bucket shape instead of one per problem.
     ``engine``: "f64" = reference-faithful J/R loop (robust, right for the
     corpus's wide conditioning range); "refined" = f32 loop + f64-residual
-    refinement; "pallas" = the whole-solve kernel + refinement (the
-    throughput path; interpret mode off-TPU); "pallas_rescued" = same plus
-    the f64 re-solve of lanes whose refined KKT residual misses 1e-8
-    (host-orchestrated; falls back to "pallas" off-TPU).
+    refinement; "pallas" = the whole-solve loop kernel + refinement (the
+    throughput path; GPU only unless ``interpret=True``, see
+    :func:`jrlqp_tpu.solver.fast.solve_refined_pallas`); "pallas_rescued" =
+    same plus the f64 re-solve of lanes whose refined KKT residual misses
+    1e-8 (host-orchestrated).
     """
     import jax
     import jax.numpy as jnp
@@ -339,16 +341,12 @@ def run_corpus(
                 solve_refined_pallas_rescued,
             )
 
-            dflt = jax.config.jax_default_device
-            platform = (dflt.platform if dflt is not None
-                        else jax.default_backend())
-            interp = platform != "tpu"
             if engine == "pallas_rescued":
                 batch_res = solve_refined_pallas_rescued(
-                    pbs, opt, ir_steps=ir_steps, interpret=interp)
+                    pbs, opt, ir_steps=ir_steps, interpret=interpret)
             else:
                 batch_res = solve_refined_pallas(pbs, opt, ir_steps=ir_steps,
-                                                 interpret=interp)
+                                                 interpret=interpret)
         else:
             batch_res = solve_batch(pbs, opt)
         for i, (e, data) in enumerate(items):

@@ -1,6 +1,6 @@
 """Fixed-shape masked linear-algebra primitives for the GI solver.
 
-These are the TPU-native replacements for the reference's in-place Eigen
+These are the fixed-shape replacements for the reference's in-place Eigen
 updates (ref: src/GoldfarbIdnaniSolver.cpp:221-256). Everything operates on
 padded (n, n) arrays with a dynamic active count ``q``; loop trip counts are
 static, data-dependence is expressed through masks so a single jitted
@@ -11,7 +11,7 @@ Design choices vs the reference:
 - addConstraint's Givens chain (ref :226-231, with the reference's own
   "[OPTIM] use Householder transformation instead" note) is implemented as a
   single masked Householder reflector: one gemv + one rank-1 update on J --
-  MXU-friendly O(n(n-q)) instead of n sequential rotations.
+  O(n(n-q)) batched work instead of n sequential rotations.
 - removeConstraint's Hessenberg restore (ref :239-256) keeps the sequential
   Givens sweep (the rotations are data-dependent through the running R), as
   a fixed-trip ``fori_loop`` with per-step masks.

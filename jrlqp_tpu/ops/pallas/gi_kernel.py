@@ -1,54 +1,57 @@
-"""Pallas whole-solve kernel for the explicit-form GI iteration (float32).
+"""Pallas (Triton) whole-solve kernel for the explicit-form GI loop (float32).
 
-The XLA-composed iteration (:mod:`jrlqp_tpu.solver.fast`) spends most of its
-wall clock on per-op dispatch: each of the ~60 small batched ops in the loop
-body costs fixed overhead, and a 60-90-iteration solve pays it every
-iteration. This kernel runs the ENTIRE active-set loop for one problem per
-grid program with all state resident in VMEM -- one kernel launch per batch,
-zero per-op dispatch, which is the speed-of-light structure for this solver
-on TPU (SURVEY.md section 7 / M3).
+The vmapped XLA loop (:func:`jrlqp_tpu.solver.fast.solve_refined`) reads the
+operators H and N* and the constraint matrix C from device memory on every
+iteration, writes the rank-one updates back, and runs every lane until the
+slowest lane of the batch is done. This kernel runs the ENTIRE active-set
+loop for one problem per program: G, C and the operators are read once per
+solve, the operators stay in registers across iterations, and each program
+stops when its own problem is done.
 
-Layout decisions (see the Pallas TPU guide):
-- one problem per grid program; matrices padded to multiples of 8 (f32
-  sublane); vectors stored as (1, X) rows;
-- H and N* are stacked into ONE operator K (2*np_, np_): the per-iteration
-  directions z = H n+ and r = N* n+ are a single MXU matvec, and both
-  rank-one updates (add and remove) are a single stacked outer product --
-  the MXU processes 128 sublanes per pass, so (2*np_, np_) costs the same
-  pass count as (np_, np_) for np_ <= 64;
-- `lax.cond` keeps only one of {stop, add-update, remove-update} on the
-  executed path per iteration (one problem per program -- no divergence
-  penalty), and skips the violated-constraint scan on iterations that
-  follow a removal (the reference's skipStep1, DualSolver.cpp:103-111);
-- all index updates (status flips, activation order, condensed multipliers)
-  are broadcasted-iota masked ``where``s -- no scatters;
-- dynamic row reads (C[idx], N*[l]) are masked-reduction gathers;
-- the per-slot activation status (equality/fixed exclusion in the dual step
-  bound) is carried incrementally instead of re-gathered via a one-hot
-  matmul every iteration;
-- bound/constraint index spaces are remapped so padded general-constraint
-  slots sit between the real constraints and the bounds;
-- the Cholesky-based init (H0 = G^-1, x0 = -G^-1 a, equality
-  auto-activation) runs OUTSIDE the kernel as one-time batched XLA ops
-  (:func:`jrlqp_tpu.solver.fast._init_fast`); the kernel runs the loop.
+Layout (Triton wants power-of-two block shapes):
+- one problem per program; ``np_`` = next power of two >= n+1 (the extra
+  slot holds a pending candidate at a full-rank vertex), ``mp_`` = next
+  power of two >= m; padded rows/lanes carry zeros and +-BIG bounds;
+- H is (np_, np_) and N* is stored transposed, ``NsT`` (np_, np_), so the
+  k-th active row of N* is COLUMN k: the directions z = H n+ and
+  r = N* n+ are both column sums of a broadcast multiply, and both
+  rank-one updates are outer products of a row vector with a lane vector;
+- matrix-vector products are broadcast multiplies plus ``jnp.sum`` (no
+  ``pl.dot``: Triton's dot needs operands >= 16 per dimension and would
+  compute f32 in TF32);
+- the constraint index space is remapped so padded general-constraint slots
+  sit between the real constraints (0..m-1) and the bounds (mp_..mp_+n-1);
+  statuses are carried as two vectors (general, bounds);
+- active-set slots form a HOLE-BASED free list instead of the reference's
+  compact activation order (ref ActiveSet erases by position and shifts,
+  src/internal/ActiveSet.cpp:132-168): a slot is active iff its carried
+  per-slot status ``sk`` is nonzero; an add writes the first free slot
+  (pinned per candidate in ``sc_slot``); a removal zeroes the slot's N*
+  column, status, activation index and multiplier. Outputs may therefore
+  carry holes; consumers mask validity with ``aorder >= 0``;
+- ``lax.cond`` keeps only one of {stop, add, remove} operator updates on the
+  executed path (one problem per program: no divergence), and the
+  violated-constraint scan is skipped after a removal (the reference's
+  skipStep1, DualSolver.cpp:103-111).
 
-Under jax_enable_x64 every bare Python int/float in a traced op becomes a
-weak 64-bit scalar, which Mosaic cannot lower (unsupported i64 converts /
-tpu.truncf); all scalar constants below are pinned to int32/float32 and
-integer reductions are routed through f32.
+The init (Cholesky, H0 = G^-1, x0 = -G^-1 a, equality auto-activation, or a
+warm start) runs outside the kernel as batched XLA ops; the kernel takes
+any such state, including one with holes.
+
+Under jax_enable_x64 bare Python ints trace as 64-bit; every scalar and
+index below is pinned to int32/float32.
 
 Reproduces :func:`jrlqp_tpu.solver.fast.fast_iteration` (differential-tested
-in interpret mode on CPU and against the XLA path on TPU).
+in interpret mode on CPU and against the XLA path on the GPU).
 """
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ...problems import QPProblem
 from ...types import (
@@ -59,455 +62,169 @@ from ...types import (
     LOWER,
     LOWER_BOUND,
     MAX_ITER_REACHED,
-    NON_POS_HESSIAN,
-    OVERCONSTRAINED_PROBLEM,
     RUNNING,
     SUCCESS,
     UPPER,
     UPPER_BOUND,
 )
 
-__all__ = ["run_loop_pallas"]
+__all__ = ["run_loop_pallas", "kernel_fits", "padded_dims", "MAX_NP"]
 
 BIG = 1e30  # f32 infinity proxy inside the kernel
 
-
-def _round_up(x, m):
-    return (x + m - 1) // m * m
-
-
-def _bmv(A, v):
-    """(P, R, C) @ (P, C) -> (P, R), batched on the MXU."""
-    return jax.lax.dot_general(A, v, (((2,), (1,)), ((0,), (0,))),
-                               preferred_element_type=jnp.float32)
+# Largest padded variable dimension the kernel takes (n <= 127). On an H100
+# 80GB HBM3 (400 W limit), end to end with refinement and at iteration caps
+# that every lane converges under, the kernel engine is 2.9x faster than the
+# XLA engine at n=50 (64-wide blocks) and 1.17x faster at n=100 (128-wide
+# blocks, batch 4096, 8 warps); above the limit the engines route to the XLA
+# loop (see solver.fast._use_kernel and PERF.md).
+MAX_NP = 128
 
 
-def _bouter(u_, v):
-    """(P, R) x (P, C) -> (P, R, C) batched outer product as a broadcast
-    multiply (VPU): a K=1 dot_general would burn full MXU passes per
-    problem for a rank-one result."""
-    return u_[:, :, None] * v[:, None, :]
+def default_warps(np_: int) -> int:
+    """Warps per program for ``np_``-wide blocks, as measured fastest on the
+    same card: 4 at 64 wide (2 warps: 2.0x slower, 8: 1.3x, 16: 2.4x), 8 at
+    128 wide (4 warps: 2.7x slower; PERF.md)."""
+    return 4 if np_ <= 64 else 8
 
 
-def _vecmat(v, A):
-    """(P, C) @ (P, C, N) -> (P, N): batched vector-matrix product with the
-    contraction over the matrix's SUBLANE dim -- the MXU-native A^T B form
-    (the matrix needs no relayout). The vector gets an explicit singleton
-    non-contracting dim: Mosaic's dot lowering rejects an empty
-    lhs_non_contracting_dims set."""
-    out = jax.lax.dot_general(v[:, None, :], A,
-                              (((2,), (1,)), ((0,), (0,))),
-                              preferred_element_type=jnp.float32)
-    return out[:, 0, :]
+def _pow2(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
 
 
-def _kernel(
-    G_ref, C_ref, l_ref, u_ref, xl_ref, xu_ref,
-    K0_ref, x0_ref, u0_ref, st0_ref, ao0_ref, sk0_ref, scal0_ref, fs0_ref,
-    x_out, u_out, st_out, ao_out, scal_out, K_out, fs_out,
-    *, n, m, np_, mp_, mtp_, max_iter,
-):
-    f32 = jnp.float32
-    i32 = lambda v: jnp.asarray(v, jnp.int32)  # noqa: E731
-    one, zero_i, neg1 = i32(1), i32(0), i32(-1)
-    G = G_ref[0]        # (np_, np_)
-    C = C_ref[0]        # (mp_, np_)
-    lo = l_ref[0]       # (1, mp_)
-    up = u_ref[0]       # (1, mp_)
-    xlo = xl_ref[0]     # (1, np_)
-    xup = xu_ref[0]     # (1, np_)
+def padded_dims(n: int, m: int) -> tuple[int, int]:
+    """Kernel block sizes (np_, mp_) for an (n, m) problem."""
+    return max(_pow2(n + 1), 8), max(_pow2(m), 8)
 
-    iot_n = jax.lax.broadcasted_iota(jnp.int32, (1, np_), 1)
-    iot_m = jax.lax.broadcasted_iota(jnp.int32, (1, mp_), 1)
-    iot_mt = jax.lax.broadcasted_iota(jnp.int32, (1, mtp_), 1)
-    row_2n = jax.lax.broadcasted_iota(jnp.int32, (2 * np_, np_), 0)
-    real_n = iot_n < i32(n)
+
+def kernel_fits(n: int, m: int) -> bool:
+    """Whether an (n, m) problem is within the kernel's size limit."""
+    return padded_dims(n, m)[0] <= MAX_NP
+
+
+def _kernel(*refs, n, m, np_, mp_, max_iter, warm):
+    (G_ref, C_ref, lo_ref, up_ref, xlo_ref, xup_ref, H0_ref, N0_ref, x0_ref,
+     u0_ref, stc0_ref, stb0_ref, ao0_ref, sk0_ref, scal0_ref,
+     hs_ref) = refs[:16]
+    (x_out, u_out, stc_out, stb_out, ao_out, scal_out, H_out,
+     N_out) = refs[-8:]
+    f32, i32 = jnp.float32, jnp.int32
+    lax = jax.lax
+    iot_n = lax.broadcasted_iota(i32, (np_,), 0)
+    iot_m = lax.broadcasted_iota(i32, (mp_,), 0)
+    iot8 = lax.broadcasted_iota(i32, (8,), 0)
+    row_n = lax.broadcasted_iota(i32, (np_, np_), 1)   # lane index of (np_, np_)
+    row_m = lax.broadcasted_iota(i32, (mp_, np_), 0)   # row index of (mp_, np_)
     real_m = iot_m < i32(m)
+    real_n = iot_n < i32(n)
+    lo, up = lo_ref[...], up_ref[...]
+    xlo, xup = xlo_ref[...], xup_ref[...]
 
-    # scale-aware dependence threshold (see fast._dep_eps): relative to
-    # the INIT-time trace(H0) = trace(G^-1), an upper scale for every later
-    # H. Carried in via fs0 (slot 0) rather than recomputed from K0 so a
-    # resumed run (mid-solve compaction, _pallas_phase2) keeps the original
-    # scale -- the evolved K's trace shrinks as constraints activate and
-    # would loosen the test.
-    tr0 = jnp.maximum(jnp.sum(jnp.where(
-        jax.lax.broadcasted_iota(jnp.int32, (1, 8), 1) == 0,
-        fs0_ref[0], f32(0.0))), f32(1e-30))
+    def isum(v):
+        return jnp.sum(v, dtype=i32)
+
+    def pick(v, mask):
+        """v[k] for the single lane where mask holds (0 elsewhere)."""
+        if v.dtype == i32:
+            return isum(jnp.where(mask, v, i32(0)))
+        return jnp.sum(jnp.where(mask, v, f32(0.0)))
+
+    def argmin(v):
+        return lax.argmin(v, 0, i32)
+
+    scal0 = scal0_ref[...]
+    # the INIT-time trace(H0) = trace(G^-1) is the scale reference of the
+    # dependence and zero-z thresholds (see fast._dep_eps); a resumed state
+    # keeps its original scale instead of the evolved H's smaller trace
+    tr0 = jnp.maximum(pick(hs_ref[...], iot8 == 0), f32(1e-30))
     dep_thr = f32(2e-7) * tr0
+    zs = f32(1e-6) * tr0 * f32(1.0 / n)
 
-    def gather_row(M, idx):
-        mask = jax.lax.broadcasted_iota(jnp.int32, M.shape, 0) == idx
-        return jnp.sum(jnp.where(mask, M, f32(0.0)), axis=0, keepdims=True)
+    def remove_op(H, NsT, lpos, valid):
+        """Rank-one remove update of slot ``lpos`` (fast._apply_remove)."""
+        lmask = row_n == lpos
+        nl = jnp.sum(jnp.where(lmask, NsT, f32(0.0)), axis=1)       # N*[l]
+        G = G_ref[...]
+        v = jnp.sum(G * nl[None, :], axis=1)                        # G n_l*
+        w = jnp.sum(v[:, None] * NsT, axis=0)                       # N* v
+        wl = pick(w, iot_n == lpos)
+        wl_safe = jnp.where(jnp.abs(wl) > f32(0.0), wl, f32(1.0))
+        wmask = jnp.where(valid & (iot_n != lpos), w, f32(0.0))
+        H2 = H + nl[:, None] * (nl / wl_safe)[None, :]
+        N2 = NsT - nl[:, None] * (wmask / wl_safe)[None, :]
+        # hole-based slots: just zero the freed N* column
+        return H2, jnp.where(lmask, f32(0.0), N2)
 
-    def matvec(A, v):
-        """(r, c) @ (1, c) -> (1, r) via MXU."""
-        return jnp.dot(A, v.reshape(-1, 1), preferred_element_type=f32).reshape(1, -1)
+    def remove_status(stc, stb, ao, sk, lpos):
+        """Free slot ``lpos``: its constraint becomes inactive."""
+        rem_idx = pick(ao, iot_n == lpos)
+        return (jnp.where(iot_m == rem_idx, i32(0), stc),
+                jnp.where(iot_n == rem_idx - i32(mp_), i32(0), stb),
+                jnp.where(iot_n == lpos, i32(-1), ao),
+                jnp.where(iot_n == lpos, i32(0), sk))
 
     def body(carry):
-        (x, K, uvec, status, aorder, statk, nplus, q, it, term, skip1,
-         sc_idx, sc_st) = carry
-
-        # ---- step 1: most-violated selection (skipped after a removal,
-        # ref DualSolver.cpp:103-111) ----
-        def do_selection(x, status, uvec):
-            cx = matvec(C, x)  # (1, mp_)
-            sl = cx - lo
-            su = up - cx
-            act_c = status[:, :mp_] != zero_i
-            cand_c = jnp.where(act_c | ~real_m, f32(BIG), jnp.minimum(sl, su))
-            st_c = jnp.where(sl <= su, jnp.int32(LOWER), jnp.int32(UPPER))
-            slb = x - xlo
-            sub = xup - x
-            act_b = status[:, mp_:] != zero_i
-            cand_b = jnp.where(act_b | ~real_n, f32(BIG),
-                               jnp.minimum(slb, sub))
-            st_b = jnp.where(slb <= sub, jnp.int32(LOWER_BOUND),
-                             jnp.int32(UPPER_BOUND))
-            cand = jnp.concatenate([cand_c, cand_b], axis=1)  # (1, mtp_)
-            sts = jnp.concatenate([st_c, st_b], axis=1)
-            p = jax.lax.argmin(cand[0, :], 0, jnp.int32)
-            viol = jnp.min(cand[0, :])
-            # int reductions are unsupported in Mosaic: sum tiny ints in f32
-            sel_st = jnp.sum(
-                jnp.where(iot_mt == p, sts.astype(f32), f32(0.0))
-            ).astype(jnp.int32)
-            # signed constraint normal of the selected candidate
-            sign = jnp.where(
-                (sel_st == i32(UPPER)) | (sel_st == i32(UPPER_BOUND)),
-                f32(-1), f32(1))
-            is_bnd = sel_st >= i32(LOWER_BOUND)
-            crow = gather_row(C, jnp.clip(p, zero_i, i32(mp_ - 1)))
-            e = (iot_n == (p - i32(mp_))).astype(f32)
-            npl = sign * jnp.where(is_bnd, e, crow)
-            u2 = jnp.where(iot_n == q, f32(0.0), uvec)
-            succ = jnp.where(viol >= f32(0.0), one, zero_i)
-            return p, sel_st, npl, u2, succ
-
-        def keep_selection(x, status, uvec):
-            return sc_idx, sc_st, nplus, uvec, zero_i
-
-        sc_idx_n, sc_st_n, nplus_n, uvec_n, success = jax.lax.cond(
-            skip1 != zero_i, keep_selection, do_selection, x, status, uvec)
-
-        def stop_success(x, K, uvec, status, aorder, statk):
-            return (x, K, uvec, status, aorder, statk, nplus_n, q, it,
-                    i32(SUCCESS), skip1, sc_idx_n, sc_st_n)
-
-        def proceed(x, K, uvec, status, aorder, statk):
-            sign = jnp.where(
-                (sc_st_n == i32(UPPER)) | (sc_st_n == i32(UPPER_BOUND)),
-                f32(-1), f32(1))
-            is_bnd = sc_st_n >= i32(LOWER_BOUND)
-
-            # ---- z = H n+, r = N* n+: ONE stacked matvec ----
-            zr = matvec(K, nplus_n)  # (1, 2np_)
-            z = zr[:, :np_]
-            r = zr[:, np_:]
-
-            # ---- step lengths ----
-            eligible = (
-                (iot_n < q) & (statk != f32(EQUALITY))
-                & (statk != f32(FIXED)) & (r > f32(0.0))
-            )
-            r_safe = jnp.where(eligible, r, f32(1.0))
-            tks = jnp.where(eligible, uvec / r_safe, f32(BIG))
-            lpos = jax.lax.argmin(tks[0, :], 0, jnp.int32)
-            t1 = jnp.minimum(jnp.min(tks[0, :]), f32(BIG))
-
-            znorm2 = jnp.sum(z * z)
-            nz = jnp.sum(nplus_n * z)
-            nx = jnp.sum(nplus_n * x)
-            bidx = jnp.clip(sc_idx_n - i32(mp_), zero_i, i32(np_ - 1))
-            cidx = jnp.clip(sc_idx_n, zero_i, i32(mp_ - 1))
-            b_gen = jnp.sum(jnp.where(
-                iot_m == cidx,
-                jnp.where(sc_st_n == i32(UPPER), up, lo), f32(0.0)))
-            b_bnd = jnp.sum(jnp.where(
-                iot_n == bidx,
-                jnp.where(sc_st_n == i32(UPPER_BOUND), xup, xlo), f32(0.0)))
-            b = jnp.where(is_bnd, b_bnd, b_gen)
-            nz_safe = jnp.where(nz != f32(0.0), nz, f32(1.0))
-            # scale-aware zero-z test (see fast.fast_iteration)
-            nn_sel = jnp.sum(nplus_n * nplus_n)
-            zs = f32(1e-6) * tr0 * f32(1.0 / n)
-            t2 = jnp.where(znorm2 > zs * zs * nn_sel,
-                           (sign * b - nx) / nz_safe, f32(BIG))
-            t = jnp.minimum(t1, t2)
-
-            infeasible = t >= f32(BIG)
-            dual_step = (t2 >= f32(BIG)) & ~infeasible
-            full_step = ~infeasible & ~dual_step & (t2 <= t1)
-
-            def stop_infeasible(_ignored):
-                return (x, K, uvec, status, aorder, statk, nplus_n, q, it,
-                        i32(INFEASIBLE), skip1, sc_idx_n, sc_st_n)
-
-            def step(full_step):
-                r_head = jnp.where(iot_n < q, r, f32(0.0))
-                u_stepped = uvec - t * r_head
-                u_stepped = jnp.where(iot_n == q, u_stepped + t, u_stepped)
-                primal = ~dual_step
-                x_new = jnp.where(primal, x + t * z, x)
-                # objective recomputed at finalize time
-
-                def add_update(_ignored):
-                    # H -= z z^T/d; N* rows -= r z^T/d; new N* row = z^T/d
-                    # == K -= [z; r_head] zn^T, then set row np_+q
-                    nn = jnp.sum(nplus_n * nplus_n)
-                    dependent = nz <= dep_thr * nn
-                    dsafe = jnp.where(dependent, f32(1.0), nz)
-                    zn = z / dsafe
-                    stack = jnp.concatenate([z, r_head], axis=1)  # (1, 2np_)
-                    K_add = K - jnp.dot(stack.reshape(2 * np_, 1), zn,
-                                        preferred_element_type=f32)
-                    K_add = jnp.where(row_2n == i32(np_) + q, zn, K_add)
-                    status_add = jnp.where(iot_mt == sc_idx_n, sc_st_n,
-                                           status)
-                    aorder_add = jnp.where(iot_n == q, sc_idx_n, aorder)
-                    statk_add = jnp.where(iot_n == q, sc_st_n.astype(f32),
-                                          statk)
-                    term_add = jnp.where(dependent,
-                                         i32(LINEAR_DEPENDENCY_DETECTED),
-                                         term)
-                    return (x_new, K_add, u_stepped, status_add, aorder_add,
-                            statk_add, nplus_n, q + one, it + one, term_add,
-                            zero_i, sc_idx_n, sc_st_n)
-
-                def remove_update(_ignored):
-                    # H += n_l* n_l*^T / w_l; N* -= (w/w_l) n_l*; drop row l
-                    nl = gather_row(
-                        K, i32(np_) + jnp.clip(lpos, zero_i, i32(np_ - 1)))
-                    v = matvec(G, nl)          # (1, np_)
-                    w_full = matvec(K, v)      # (1, 2np_); tail = N* v
-                    w = w_full[:, np_:]
-                    wl = jnp.sum(jnp.where(iot_n == lpos, w, f32(0.0)))
-                    wl_safe = jnp.where(jnp.abs(wl) > f32(0.0), wl, f32(1.0))
-                    wmask = jnp.where((iot_n < q) & (iot_n != lpos), w,
-                                      f32(0.0))
-                    stack = jnp.concatenate([-nl, wmask], axis=1) / wl_safe
-                    K_rem = K - jnp.dot(stack.reshape(2 * np_, 1), nl,
-                                        preferred_element_type=f32)
-                    # delete N* row l: shift rows l+1..q-1 up, zero >= q-1
-                    rolled = pltpu.roll(K_rem, i32(2 * np_ - 1), axis=0)
-                    lrow = i32(np_) + lpos
-                    qrow = i32(np_) + q
-                    K_rem = jnp.where((row_2n >= lrow) & (row_2n < qrow - one),
-                                      rolled, K_rem)
-                    K_rem = jnp.where(row_2n >= qrow - one, f32(0.0), K_rem)
-                    rem_idx = jnp.sum(jnp.where(
-                        iot_n == lpos,
-                        jnp.clip(aorder, zero_i,
-                                 i32(mtp_ - 1)).astype(f32),
-                        f32(0.0))).astype(jnp.int32)
-                    status_rem = jnp.where(iot_mt == rem_idx, zero_i, status)
-                    shift = (iot_n >= lpos) & (iot_n < q - one)
-                    ao_roll = pltpu.roll(aorder, i32(np_ - 1), axis=1)
-                    aorder_rem = jnp.where(shift, ao_roll, aorder)
-                    aorder_rem = jnp.where(iot_n >= q - one, neg1, aorder_rem)
-                    sk_roll = pltpu.roll(statk, i32(np_ - 1), axis=1)
-                    statk_rem = jnp.where(shift, sk_roll, statk)
-                    statk_rem = jnp.where(iot_n >= q - one, f32(0.0),
-                                          statk_rem)
-                    # u has the candidate at slot q: shift up to q, clear >= q
-                    u_roll = pltpu.roll(u_stepped, i32(np_ - 1), axis=1)
-                    u_rem = jnp.where((iot_n >= lpos) & (iot_n < q), u_roll,
-                                      u_stepped)
-                    u_rem = jnp.where(iot_n >= q, f32(0.0), u_rem)
-                    return (x_new, K_rem, u_rem, status_rem, aorder_rem,
-                            statk_rem, nplus_n, q - one, it + one, term,
-                            one, sc_idx_n, sc_st_n)
-
-                return jax.lax.cond(full_step, add_update, remove_update,
-                                    zero_i)
-
-            return jax.lax.cond(infeasible, stop_infeasible, step, full_step)
-
-        return jax.lax.cond(success != zero_i, stop_success, proceed,
-                            x, K, uvec, status, aorder, statk)
-
-    def cond(carry):
-        it = carry[8]
-        term = carry[9]
-        return (term == i32(RUNNING)) & (it < i32(max_iter))
-
-    scal0 = scal0_ref[0]  # (1, 8) int32
-    init = (
-        x0_ref[0], K0_ref[0], u0_ref[0], st0_ref[0], ao0_ref[0],
-        sk0_ref[0], jnp.zeros((1, np_), f32),
-        scal0[0, 0], scal0[0, 1], scal0[0, 2], scal0[0, 3],
-        scal0[0, 4], scal0[0, 5],
-    )
-    out = jax.lax.while_loop(cond, body, init)
-    (x, K, uvec, status, aorder, statk, nplus, q, it, term, skip1,
-     sc_idx, sc_st) = out
-    term = jnp.where(term == i32(RUNNING), i32(MAX_ITER_REACHED),
-                     term).astype(jnp.int32)
-
-    x_out[0] = x
-    u_out[0] = uvec
-    st_out[0] = status
-    ao_out[0] = aorder
-    K_out[0] = K
-    fs_out[0] = fs0_ref[0]  # carry tr0 forward for resumed runs
-    zero = jnp.zeros((1, 1), jnp.int32)
-    scal_out[0] = jnp.concatenate(
-        [
-            q.reshape(1, 1), it.reshape(1, 1), term.reshape(1, 1),
-            skip1.reshape(1, 1),
-            sc_idx.reshape(1, 1), sc_st.reshape(1, 1), zero, zero,
-        ],
-        axis=1,
-    )
-
-
-
-def _packed_iterate(G, Ct, lo, up, xlo, xup, tr0, init,
-                    *, n, m, np_, mp_, mtp_, max_iter, P):
-    """The packed GI while-loop over P problems' VMEM-resident state.
-
-    Shared by :func:`_kernel_packed` (state initialized outside the kernel
-    by XLA ops) and :func:`_kernel_packed_fused` (state initialized by the
-    in-kernel Cholesky prologue). Fully vectorized masked iteration: the
-    single-problem kernel is latency-bound (each small MXU matvec/outer
-    costs ~300-650ns of pipeline latency); packing P independent problems
-    per program turns them into batched dot_generals (independent MXU
-    passes that pipeline back-to-back: measured ~4x per-problem speedup at
-    P=8) and amortizes every VPU bookkeeping op over P sublane rows. The
-    price is masked straight-line code (no per-problem lax.cond: stopped
-    problems freeze via selects) and running each pack until its slowest
-    member finishes.
-
-    Operator layout: K is (P, np_, 2np_) = [H | N*^T] per problem -- H in
-    lanes 0..np_-1, the k-th active row of N* stored as COLUMN np_+k. The
-    lane dim thus carries 2np_ (112 of 128 lanes at n=50) instead of np_
-    (56), halving the vector-register tile count of every K-sized
-    elementwise op (the dominant per-iteration cost). The per-iteration
-    linear algebra keeps its one-op structure in this layout:
-    - directions: [z | r] = n+ @ K in ONE vector-matrix MXU op
-      (z = H n+ by symmetry of H, r_k = N*[k]·n+ via the N*^T columns);
-    - both rank-one updates are K -= u v^T with u a (np_,) row vector and
-      v a (2np_,) lane vector: add u=z, v=[z|r_head]/delta; remove u=n_l*,
-      v=[-n_l*|w_mask]/w_l -- still one fused outer product.
-    ``Ct`` is C^T (P, np_, mp_) for the same lane-utilization reason.
-
-    Active-set slots use a HOLE-BASED free list instead of the reference's
-    compact activation order (ref ActiveSet erases by position and shifts,
-    src/internal/ActiveSet.cpp:132-168): a slot is active iff its carried
-    per-slot status ``statk`` is nonzero; an add writes the first free
-    slot (tracked per candidate in ``sc_slot``); a removal just ZEROES the
-    slot's N* column, statk, aorder and multiplier. This deletes the
-    remove path's K-sized lane roll plus two K-sized selects and three
-    row rolls per iteration (one extra roll+select pair measured ~20% of
-    wall at n=50). Kernel outputs may therefore carry holes; downstream
-    consumers mask validity with ``aorder >= 0`` rather than ``k < q``.
-    """
-    f32 = jnp.float32
-    i32 = lambda v: jnp.asarray(v, jnp.int32)  # noqa: E731
-    one, zero_i, neg1 = i32(1), i32(0), i32(-1)
-
-    iot_n = jax.lax.broadcasted_iota(jnp.int32, (1, np_), 1)
-    iot_m = jax.lax.broadcasted_iota(jnp.int32, (1, mp_), 1)
-    iot_mt = jax.lax.broadcasted_iota(jnp.int32, (1, mtp_), 1)
-    iotf_mt = iot_mt.astype(f32)
-    iotf_n = iot_n.astype(f32)
-    lane2 = jax.lax.broadcasted_iota(jnp.int32, (1, 1, 2 * np_), 2)
-    laneC = jax.lax.broadcasted_iota(jnp.int32, (1, 1, mp_), 2)
-    real_n = iot_n < i32(n)
-    real_m = iot_m < i32(m)
-
-    # scale-aware dependence threshold (see fast._dep_eps): per-problem,
-    # relative to the INIT-time trace(H0) = trace(G^-1) (an upper scale for
-    # every later H); the caller carries tr0 so resumed runs (mid-solve
-    # compaction) keep the original scale instead of the evolved K's
-    # shrunken trace
-    dep_thr = f32(2e-7) * tr0
-
-    bmv, bouter = _bmv, _bouter
-
-    def rowmin(vals, iotf):
-        """Per-row (min, argmin) via the f32 index-min trick (integer
-        reductions are unsupported in Mosaic; indices < 2^24 are exact)."""
-        mn = jnp.min(vals, axis=1, keepdims=True)
-        idx = jnp.min(jnp.where(vals == mn, iotf, f32(BIG)),
-                      axis=1, keepdims=True).astype(jnp.int32)
-        return mn, idx
-
-    def body(carry):
-        (x, K, uvec, status, aorder, statk, nplus, q, it, term, skip1,
+        (x, H, NsT, uvec, stc, stb, ao, sk, nplus, q, it, term, skip1,
          sc_idx, sc_st, sc_slot) = carry
-        active = (term == i32(RUNNING)) & (it < i32(max_iter))  # (P, 1)
-        valid = statk != f32(0.0)                # (P, np_) active slots
+        valid = sk != i32(0)
 
-        # ---- step 1: most-violated selection (masked by skip1) ----
-        cx = _vecmat(x, Ct)                                     # (P, mp_)
-        sl = cx - lo
-        su = up - cx
-        act_c = status[:, :mp_] != zero_i
-        cand_c = jnp.where(act_c | ~real_m, f32(BIG), jnp.minimum(sl, su))
-        st_c = jnp.where(sl <= su, jnp.int32(LOWER), jnp.int32(UPPER))
-        slb = x - xlo
-        sub = xup - x
-        act_b = status[:, mp_:] != zero_i
-        cand_b = jnp.where(act_b | ~real_n, f32(BIG), jnp.minimum(slb, sub))
-        st_b = jnp.where(slb <= sub, jnp.int32(LOWER_BOUND),
-                         jnp.int32(UPPER_BOUND))
-        cand = jnp.concatenate([cand_c, cand_b], axis=1)        # (P, mtp_)
-        sts = jnp.concatenate([st_c, st_b], axis=1)
-        viol, p = rowmin(cand, iotf_mt)
-        sel_st = jnp.sum(jnp.where(iot_mt == p, sts.astype(f32), f32(0.0)),
-                         axis=1, keepdims=True).astype(jnp.int32)
-        do_select = skip1 == zero_i
+        # ---- step 1: most-violated constraint (skipped after a removal) --
+        C = C_ref[...]
+        cx = jnp.sum(C * x[None, :], axis=1)                    # (mp_,)
+        sl, su = cx - lo, up - cx
+        cand_c = jnp.where((stc != i32(0)) | ~real_m, f32(BIG),
+                           jnp.minimum(sl, su))
+        st_c = jnp.where(sl <= su, i32(LOWER), i32(UPPER))
+        slb, sub = x - xlo, xup - x
+        cand_b = jnp.where((stb != i32(0)) | ~real_n, f32(BIG),
+                           jnp.minimum(slb, sub))
+        st_b = jnp.where(slb <= sub, i32(LOWER_BOUND), i32(UPPER_BOUND))
+        pc, pb = argmin(cand_c), argmin(cand_b)
+        vc, vb = jnp.min(cand_c), jnp.min(cand_b)
+        gen = vc <= vb           # ties go to the lower (general) index
+        viol = jnp.minimum(vc, vb)
+        p = jnp.where(gen, pc, i32(mp_) + pb)
+        sel_st = jnp.where(gen, pick(st_c, iot_m == pc),
+                           pick(st_b, iot_n == pb))
+        do_select = skip1 == i32(0)
         success = do_select & (viol >= f32(0.0))
         sc_idx_n = jnp.where(do_select, p, sc_idx)
         sc_st_n = jnp.where(do_select, sel_st, sc_st)
         # candidate slot: first FREE slot, pinned for the candidate's
         # lifetime (its multiplier accumulates there across partial steps)
-        _, free_f = rowmin(jnp.where(valid, f32(BIG), iotf_n), iotf_n)
-        sc_slot_n = jnp.where(do_select, free_f, sc_slot)
-        sign = jnp.where(
-            (sc_st_n == i32(UPPER)) | (sc_st_n == i32(UPPER_BOUND)),
-            f32(-1), f32(1))
+        free = argmin(valid.astype(i32))
+        sc_slot_n = jnp.where(do_select, free, sc_slot)
+        upperish = (sc_st_n == i32(UPPER)) | (sc_st_n == i32(UPPER_BOUND))
+        sign = jnp.where(upperish, f32(-1.0), f32(1.0))
         is_bnd = sc_st_n >= i32(LOWER_BOUND)
-        # column gather as a VPU lane mask+reduce: a one-hot MXU matvec
-        # costs a full pipelined MXU pass (~10x this, measured via the
-        # dead-matvec probe at pack 24)
-        cmaskL = laneC == jnp.clip(sc_idx_n, zero_i,
-                                   i32(mp_ - 1))[:, :, None]
-        crow = jnp.sum(jnp.where(cmaskL, Ct, f32(0.0)), axis=2)  # (P, np_)
-        e = (iot_n == (sc_idx_n - i32(mp_))).astype(f32)
+        crow = jnp.sum(jnp.where(row_m == sc_idx_n, C, f32(0.0)), axis=0)
+        e = (iot_n == sc_idx_n - i32(mp_)).astype(f32)
         nplus_n = jnp.where(do_select, sign * jnp.where(is_bnd, e, crow),
                             nplus)
 
-        # ---- directions: one vector-matrix MXU op (H symmetric) ----
-        zr = _vecmat(nplus_n, K)                                # (P, 2np_)
-        z = zr[:, :np_]
-        r = zr[:, np_:]
+        # ---- directions: z = H n+ (H symmetric), r = N* n+ ----
+        z = jnp.sum(nplus_n[:, None] * H, axis=0)
+        r = jnp.sum(nplus_n[:, None] * NsT, axis=0)
 
         # ---- step lengths ----
-        eligible = (valid & (statk != f32(EQUALITY))
-                    & (statk != f32(FIXED)) & (r > f32(0.0)))
-        r_safe = jnp.where(eligible, r, f32(1.0))
-        tks = jnp.where(eligible, uvec / r_safe, f32(BIG))
-        t1_raw, lpos = rowmin(tks, iotf_n)
-        t1 = jnp.minimum(t1_raw, f32(BIG))
+        eligible = (valid & (sk != i32(EQUALITY)) & (sk != i32(FIXED))
+                    & (r > f32(0.0)))
+        tks = jnp.where(eligible, uvec / jnp.where(eligible, r, f32(1.0)),
+                        f32(BIG))
+        lpos = argmin(tks)
+        t1 = jnp.minimum(jnp.min(tks), f32(BIG))
 
-        znorm2 = jnp.sum(z * z, axis=1, keepdims=True)
-        nz = jnp.sum(nplus_n * z, axis=1, keepdims=True)
-        nx = jnp.sum(nplus_n * x, axis=1, keepdims=True)
-        cidx = jnp.clip(sc_idx_n, zero_i, i32(mp_ - 1))
-        bidx = jnp.clip(sc_idx_n - i32(mp_), zero_i, i32(np_ - 1))
-        b_gen = jnp.sum(jnp.where(iot_m == cidx,
-                                  jnp.where(sc_st_n == i32(UPPER), up, lo),
-                                  f32(0.0)), axis=1, keepdims=True)
-        b_bnd = jnp.sum(jnp.where(
-            iot_n == bidx,
-            jnp.where(sc_st_n == i32(UPPER_BOUND), xup, xlo),
-            f32(0.0)), axis=1, keepdims=True)
+        znorm2 = jnp.sum(z * z)
+        nz = jnp.sum(nplus_n * z)
+        nx = jnp.sum(nplus_n * x)
+        nn = jnp.sum(nplus_n * nplus_n)
+        b_gen = pick(jnp.where(sc_st_n == i32(UPPER), up, lo),
+                     iot_m == sc_idx_n)
+        b_bnd = pick(jnp.where(sc_st_n == i32(UPPER_BOUND), xup, xlo),
+                     iot_n == sc_idx_n - i32(mp_))
         b = jnp.where(is_bnd, b_bnd, b_gen)
         nz_safe = jnp.where(nz != f32(0.0), nz, f32(1.0))
-        nn = jnp.sum(nplus_n * nplus_n, axis=1, keepdims=True)
         # scale-aware zero-z test (see fast.fast_iteration)
-        zs = f32(1e-6) * tr0 * f32(1.0 / n)
         t2 = jnp.where(znorm2 > zs * zs * nn, (sign * b - nx) / nz_safe,
                        f32(BIG))
         t = jnp.minimum(t1, t2)
@@ -515,976 +232,277 @@ def _packed_iterate(G, Ct, lo, up, xlo, xup, tr0, init,
         infeasible = (t >= f32(BIG)) & ~success
         dual_step = (t2 >= f32(BIG)) & ~infeasible
         full_step = ~infeasible & ~dual_step & (t2 <= t1)
-        # contain inf on stopping lanes (their results are discarded)
-        t_safe = jnp.where(infeasible | success, f32(0.0), t)
+        stop = success | infeasible
+        add_sel = ~stop & full_step
+        rem_sel = ~stop & ~full_step
+        t_safe = jnp.where(stop, f32(0.0), t)
 
         r_head = jnp.where(valid, r, f32(0.0))
         u_stepped = uvec - t_safe * r_head
         u_stepped = jnp.where(iot_n == sc_slot_n, u_stepped + t_safe,
                               u_stepped)
-        x_new = jnp.where(~dual_step, x + t_safe * z, x)
+        x_new = jnp.where(dual_step, x, x + t_safe * z)
 
-        # ---- per-problem step kind ----
-        stop = success | infeasible
-        adv = active & ~stop
-        add_sel = adv & full_step
-        rem_sel = adv & ~full_step
-
-        # ---- add-side rank-one vectors ----
         dependent = nz <= dep_thr * nn
         dsafe = jnp.where(dependent, f32(1.0), nz)
-        zn = z / dsafe
-        term_add = jnp.where(dependent, i32(LINEAR_DEPENDENCY_DETECTED),
-                             term)
 
-        # ---- remove-side rank-one vectors ----
-        # N* row l = K column np_+lpos: VPU lane mask+reduce (cheaper than
-        # an MXU matvec pass, see crow above)
-        lmaskL = lane2 == (i32(np_) + lpos)[:, :, None]
-        nl = jnp.sum(jnp.where(lmaskL, K, f32(0.0)), axis=2)    # (P, np_)
-        v = bmv(G, nl)
-        w = _vecmat(v, K)[:, np_:]
-        wl = jnp.sum(jnp.where(iot_n == lpos, w, f32(0.0)), axis=1,
-                     keepdims=True)
-        wl_safe = jnp.where(jnp.abs(wl) > f32(0.0), wl, f32(1.0))
-        wmask = jnp.where(valid & (iot_n != lpos), w, f32(0.0))
+        # ---- operator update: one of keep / add / remove ----
+        def keep(H, NsT):
+            return H, NsT
 
-        # ---- ONE fused rank-one update: both add and remove are
-        # K -= uvec vvec^T, so select the vectors per problem and pay a
-        # single (P, np_, 2np_) outer product ----
-        u_upd = jnp.where(add_sel, z, nl)                       # rows
-        v_upd = jnp.where(
-            add_sel, jnp.concatenate([z, r_head], axis=1) / dsafe,
-            jnp.concatenate([-nl, wmask], axis=1) / wl_safe)    # lanes
-        u_upd = jnp.where(adv, u_upd, f32(0.0))  # frozen lanes: no-op
-        K_upd = K - bouter(u_upd, v_upd)
-        # add: write the new N* column at the candidate slot;
-        # remove: just ZERO the freed slot's N* column (hole-based slots)
-        flane = (i32(np_) + sc_slot_n)[:, :, None]
-        llane = (i32(np_) + lpos)[:, :, None]
-        K_n = jnp.where(add_sel[:, :, None] & (lane2 == flane),
-                        zn[:, :, None], K_upd)
-        K_n = jnp.where(rem_sel[:, :, None] & (lane2 == llane),
-                        f32(0.0), K_n)
+        def add(H, NsT):
+            zn = z / dsafe
+            H2 = H - z[:, None] * zn[None, :]
+            N2 = NsT - z[:, None] * (r_head / dsafe)[None, :]
+            # the new N* row is column sc_slot of NsT
+            return H2, jnp.where(row_n == sc_slot_n, zn[:, None], N2)
 
-        # ---- bookkeeping rows (cheap (P, np_)/(P, mtp_) selects) ----
-        status_add = jnp.where(iot_mt == sc_idx_n, sc_st_n, status)
-        aorder_add = jnp.where(iot_n == sc_slot_n, sc_idx_n, aorder)
-        statk_add = jnp.where(iot_n == sc_slot_n, sc_st_n.astype(f32),
-                              statk)
-        rem_idx = jnp.sum(jnp.where(
-            iot_n == lpos,
-            jnp.clip(aorder, zero_i, i32(mtp_ - 1)).astype(f32), f32(0.0)),
-            axis=1, keepdims=True).astype(jnp.int32)
-        status_rem = jnp.where(iot_mt == rem_idx, zero_i, status)
-        aorder_rem = jnp.where(iot_n == lpos, neg1, aorder)
-        statk_rem = jnp.where(iot_n == lpos, f32(0.0), statk)
+        def remove(H, NsT):
+            return remove_op(H, NsT, lpos, valid)
+
+        H_n, NsT_n = lax.cond(
+            stop, keep,
+            lambda H, NsT: lax.cond(full_step, add, remove, H, NsT),
+            H, NsT)
+
+        # ---- bookkeeping (cheap vector selects) ----
+        stc_add = jnp.where(iot_m == sc_idx_n, sc_st_n, stc)
+        stb_add = jnp.where(iot_n == sc_idx_n - i32(mp_), sc_st_n, stb)
+        ao_add = jnp.where(iot_n == sc_slot_n, sc_idx_n, ao)
+        sk_add = jnp.where(iot_n == sc_slot_n, sc_st_n, sk)
+        stc_rem, stb_rem, ao_rem, sk_rem = remove_status(stc, stb, ao, sk,
+                                                         lpos)
         # relocate the pending candidate's accumulated multiplier into the
         # freed slot and re-pin it there: at q == n the candidate
         # provisionally sits in a PADDED slot (no real slot free), and the
         # dual-step removal that must follow brings it back inside the
-        # real slot range -- the compact layout achieved this implicitly
-        # with its u shift (an add can only fire with t2 finite, which the
-        # zero-z test forbids at q == n, so actives never land in padding)
-        cand_val = jnp.sum(jnp.where(iot_n == sc_slot_n, u_stepped,
-                                     f32(0.0)), axis=1, keepdims=True)
+        # real slot range (an add needs t2 finite, which the zero-z test
+        # forbids at q == n, so actives never land in padding)
+        cand_val = pick(u_stepped, iot_n == sc_slot_n)
         u_rem = jnp.where(iot_n == lpos, cand_val,
                           jnp.where(iot_n == sc_slot_n, f32(0.0),
                                     u_stepped))
 
-        def sel2(a, b, c):
-            return jnp.where(add_sel, a, jnp.where(rem_sel, b, c))
+        def sel(a, r_, keep_):
+            return jnp.where(add_sel, a, jnp.where(rem_sel, r_, keep_))
 
-        x_n = jnp.where(adv, x_new, x)
-        u_n = sel2(u_stepped, u_rem, uvec)
-        status_n = sel2(status_add, status_rem, status)
-        aorder_n = sel2(aorder_add, aorder_rem, aorder)
-        statk_n = sel2(statk_add, statk_rem, statk)
-        nplus_keep = jnp.where(active, nplus_n, nplus)
-        q_n = jnp.where(add_sel, q + one, jnp.where(rem_sel, q - one, q))
-        it_n = jnp.where(adv, it + one, it)
         term_n = jnp.where(
-            active & stop,
-            jnp.where(success, i32(SUCCESS), i32(INFEASIBLE)),
-            jnp.where(add_sel, term_add, term))
-        skip1_n = jnp.where(adv, jnp.where(full_step, zero_i, one), skip1)
-        sc_idx_keep = jnp.where(active, sc_idx_n, sc_idx)
-        sc_st_keep = jnp.where(active, sc_st_n, sc_st)
-        sc_slot_res = jnp.where(rem_sel, lpos, sc_slot_n)
-        sc_slot_keep = jnp.where(active, sc_slot_res, sc_slot)
-        return (x_n, K_n, u_n, status_n, aorder_n, statk_n, nplus_keep,
-                q_n, it_n, term_n, skip1_n, sc_idx_keep, sc_st_keep,
-                sc_slot_keep)
+            stop, jnp.where(success, i32(SUCCESS), i32(INFEASIBLE)),
+            jnp.where(add_sel & dependent, i32(LINEAR_DEPENDENCY_DETECTED),
+                      term))
+        return (
+            jnp.where(stop, x, x_new), H_n, NsT_n,
+            sel(u_stepped, u_rem, uvec),
+            sel(stc_add, stc_rem, stc), sel(stb_add, stb_rem, stb),
+            sel(ao_add, ao_rem, ao), sel(sk_add, sk_rem, sk),
+            nplus_n,
+            jnp.where(add_sel, q + i32(1), jnp.where(rem_sel, q - i32(1), q)),
+            jnp.where(stop, it, it + i32(1)),
+            term_n,
+            jnp.where(stop, skip1, jnp.where(full_step, i32(0), i32(1))),
+            sc_idx_n, sc_st_n,
+            jnp.where(rem_sel, lpos, sc_slot_n),
+        )
 
     def cond(carry):
-        it = carry[8]
-        term = carry[9]
-        running = (term == i32(RUNNING)) & (it < i32(max_iter))
-        return jnp.max(jnp.where(running, f32(1.0), f32(0.0))) > f32(0.0)
+        it, term = carry[10], carry[11]
+        return (term == i32(RUNNING)) & (it < i32(max_iter))
 
-    return jax.lax.while_loop(cond, body, init)
+    x0, H0, N0, u0 = x0_ref[...], H0_ref[...], N0_ref[...], u0_ref[...]
+    stc0, stb0, ao0, sk0 = (stc0_ref[...], stb0_ref[...], ao0_ref[...],
+                            sk0_ref[...])
+    q0, it0, term0 = (pick(scal0, iot8 == 0), pick(scal0, iot8 == 1),
+                      pick(scal0, iot8 == 2))
+    if warm:
+        # warm-carry prologue (fast._init_fast_from_carry): closed-form
+        # primal/dual point through the carried operators, then the
+        # reference's one-at-a-time deactivation of u < 0 slots
+        # (src/experimental/GoldfarbIdnaniSolver.cpp:83-108)
+        a, b0 = refs[16][...], refs[17][...]
 
+        def closed(H, NsT, b, sk):
+            # x = N*^T b - H a,  u = N* (G x + a)
+            x = (jnp.sum(NsT * b[None, :], axis=1)
+                 - jnp.sum(H * a[None, :], axis=1))
+            v = jnp.sum(G_ref[...] * x[None, :], axis=1) + a
+            u = jnp.sum(v[:, None] * NsT, axis=0)
+            return x, jnp.where(sk != i32(0), u, f32(0.0))
 
-def _kernel_packed(
-    G_ref, C_ref, l_ref, u_ref, xl_ref, xu_ref,
-    K0_ref, x0_ref, u0_ref, st0_ref, ao0_ref, sk0_ref, scal0_ref, fs0_ref,
-    x_out, u_out, st_out, ao_out, scal_out, K_out, fs_out,
-    *, n, m, np_, mp_, mtp_, max_iter, P,
-):
-    """P problems per grid program; state initialized outside the kernel
-    (XLA batched Cholesky / warm-start operators) and passed in via refs.
-    See :func:`_packed_iterate` for the iteration itself."""
-    f32 = jnp.float32
-    i32 = lambda v: jnp.asarray(v, jnp.int32)  # noqa: E731
-    # tr0 carried in via fs0 slot 0 (see _packed_iterate docstring)
-    tr0 = jnp.maximum(jnp.sum(jnp.where(
-        jax.lax.broadcasted_iota(jnp.int32, (P, 8), 1) == 0,
-        fs0_ref[0], f32(0.0)), axis=1, keepdims=True),
-        f32(1e-30))                                             # (P, 1)
-    scal0 = scal0_ref[0]  # (P, 8) int32
-    # sc_slot starts at q: inputs are compact (slots 0..q-1 active), so the
-    # first free slot is q -- also correct for a resumed mid-solve state
-    # whose pending candidate accumulates at slot q
-    init = (
-        x0_ref[0], K0_ref[0], u0_ref[0], st0_ref[0], ao0_ref[0],
-        sk0_ref[0], jnp.zeros((P, np_), f32),
-        scal0[:, 0:1], scal0[:, 1:2], scal0[:, 2:3], scal0[:, 3:4],
-        scal0[:, 4:5], scal0[:, 5:6], scal0[:, 6:7],
-    )
-    out = _packed_iterate(
-        G_ref[0], C_ref[0], l_ref[0], u_ref[0], xl_ref[0], xu_ref[0],
-        tr0, init, n=n, m=m, np_=np_, mp_=mp_, mtp_=mtp_,
-        max_iter=max_iter, P=P)
-    (x, K, uvec, status, aorder, statk, nplus, q, it, term, skip1,
-     sc_idx, sc_st, sc_slot) = out
-    term = jnp.where(term == i32(RUNNING), i32(MAX_ITER_REACHED),
-                     term).astype(jnp.int32)
+        def worst(u, sk):
+            elig = (sk != i32(0)) & (sk != i32(EQUALITY)) & (sk != i32(FIXED))
+            vals = jnp.where(elig, u, f32(0.0))
+            return argmin(vals), jnp.min(vals)
 
-    x_out[0] = x
-    u_out[0] = uvec
-    st_out[0] = status
-    ao_out[0] = aorder
-    K_out[0] = K
-    fs_out[0] = fs0_ref[0]  # carry tr0 forward for resumed runs
-    zero = jnp.zeros((P, 1), jnp.int32)
-    scal_out[0] = jnp.concatenate(
-        [q, it, term, skip1, sc_idx, sc_st, sc_slot, zero], axis=1)
+        def pro_cond(c):
+            return (term0 == i32(RUNNING)) & (worst(c[3], c[7])[1]
+                                               < f32(-1e-5))
 
+        def pro_body(c):
+            x, H, NsT, u, stc, stb, ao, sk, b, q, it = c
+            lpos = worst(u, sk)[0]
+            H, NsT = remove_op(H, NsT, lpos, sk != i32(0))
+            stc, stb, ao, sk = remove_status(stc, stb, ao, sk, lpos)
+            b = jnp.where(iot_n == lpos, f32(0.0), b)
+            x, u = closed(H, NsT, b, sk)
+            return (x, H, NsT, u, stc, stb, ao, sk, b, q - i32(1),
+                    it + i32(1))
 
-def _kernel_packed_fused(
-    G_ref, C_ref, l_ref, u_ref, xl_ref, xu_ref, a_ref,
-    x_out, u_out, st_out, ao_out, scal_out, K_out, fs_out,
-    *, n, m, np_, mp_, mtp_, max_iter, P,
-):
-    """Packed kernel with the COLD INIT fused in as a prologue: per-pack
-    batched Cholesky of G (masked column loop), triangular inverse,
-    H0 = L^-T L^-1, x0 = -H0 a -- all in VMEM. Eliminates the XLA batched
-    Cholesky/teardown AND the (B, 2np_, np_) K0 HBM round trip. G must be
-    IDENTITY-padded (the host fold does this when fused_init is on).
-
-    Equality constraints (l == u) and fixed variables (xl == xu) are
-    auto-activated by an in-kernel masked replay loop (ref initActiveSet +
-    addInitialConstraint, src/GoldfarbIdnaniSolver.cpp:268-338) -- the same
-    rank-one adds as fast._init_fast's while loop, processed per lane in
-    ascending index order. Batches without equalities skip the loop in one
-    cond evaluation, so fused_init now has NO input restriction.
-    """
-    from .block_llt import _bmm_tn, _chol_b, _tri_inv_b
-
-    f32 = jnp.float32
-    i32 = lambda v: jnp.asarray(v, jnp.int32)  # noqa: E731
-    G = G_ref[0]
-    a = a_ref[0]                                 # (P, np_)
-
-    L = _chol_b(G, np_)
-    Li = _tri_inv_b(L, np_)
-    H0 = _bmm_tn(Li, Li)                         # L^-T L^-1 = G^-1
-    rows3 = jax.lax.broadcasted_iota(jnp.int32, (1, np_, 1), 1)
-    cols3 = jax.lax.broadcasted_iota(jnp.int32, (1, 1, np_), 2)
-    eye_m = (rows3 == cols3).astype(f32)
-    dL = jnp.sum(L * eye_m, axis=2)              # (P, np_) diag of L
-    # the in-kernel Cholesky clamps pivots instead of NaN-ing: a collapsed
-    # diagonal flags non-SPD (same detection as ops/pallas/block_llt)
-    posdef = (jnp.min(dL, axis=1, keepdims=True)
-              > f32(1e-6) * jnp.max(dL, axis=1, keepdims=True))  # (P, 1)
-    H0 = jnp.where(posdef[:, :, None], H0, eye_m)
-    tr0 = jnp.maximum(jnp.sum(jnp.sum(H0 * eye_m, axis=2), axis=1,
-                              keepdims=True), f32(1e-30))        # (P, 1)
-    x0 = -jax.lax.dot_general(H0, a, (((2,), (1,)), ((0,), (0,))),
-                              preferred_element_type=f32)
-    x0 = jnp.where(posdef, x0, f32(0.0))
-    K0 = jnp.concatenate([H0, jnp.zeros((P, np_, np_), f32)], axis=2)
-
-    # ---- in-kernel equality / fixed-variable auto-activation ----
-    iot_n = jax.lax.broadcasted_iota(jnp.int32, (1, np_), 1)
-    iot_m = jax.lax.broadcasted_iota(jnp.int32, (1, mp_), 1)
-    iot_mt = jax.lax.broadcasted_iota(jnp.int32, (1, mtp_), 1)
-    iotf_mt = iot_mt.astype(f32)
-    lane2 = jax.lax.broadcasted_iota(jnp.int32, (1, 1, 2 * np_), 2)
-    laneC = jax.lax.broadcasted_iota(jnp.int32, (1, 1, mp_), 2)
-    lo, up, xlo, xup = l_ref[0], u_ref[0], xl_ref[0], xu_ref[0]
-    Ct = C_ref[0]
-    real_m = iot_m < i32(m)
-    real_n = iot_n < i32(n)
-    # remaining-equality mask kept as f32 0/1 (bool vector carries /
-    # concatenations hit Mosaic register-cast limits)
-    eqm = jnp.concatenate(
-        [jnp.where((lo == up) & real_m, f32(1.0), f32(0.0)),
-         jnp.where((xlo == xup) & real_n, f32(1.0), f32(0.0))],
-        axis=1)                                                 # (P, mtp_)
-    neq = jnp.sum(eqm, axis=1, keepdims=True)
-    over = neq > f32(n)
-    dep_thr = f32(2e-7) * tr0
-    term0 = jnp.where(posdef, i32(RUNNING), i32(NON_POS_HESSIAN))
-    zc = jnp.zeros((P, 1), jnp.int32)
-
-    def has_rem(rem):
-        # bool/int reductions are unsupported in Mosaic: reduce in f32
-        return jnp.max(rem, axis=1, keepdims=True) > f32(0.5)
-
-    def eq_cond(c):
-        rem, term = c[0], c[7]
-        act = (term == i32(RUNNING)) & has_rem(rem)
-        return jnp.max(jnp.where(act, f32(1.0), f32(0.0))) > f32(0.0)
-
-    def eq_body(c):
-        rem, x, K, u, status, aorder, statk, term, q = c
-        act = (term == i32(RUNNING)) & has_rem(rem)             # (P, 1)
-        # first remaining index (ascending: constraints, then bounds --
-        # same order as fast._init_fast's argsort perm)
-        idx = jnp.min(jnp.where(rem > f32(0.5), iotf_mt, f32(BIG)), axis=1,
-                      keepdims=True).astype(jnp.int32)          # (P, 1)
-        is_bnd = idx >= i32(mp_)
-        st = jnp.where(is_bnd, i32(FIXED), i32(EQUALITY))
-        cidx = jnp.clip(idx, i32(0), i32(mp_ - 1))
-        cmaskL = laneC == cidx[:, :, None]
-        crow = jnp.sum(jnp.where(cmaskL, Ct, f32(0.0)), axis=2)  # (P, np_)
-        e = (iot_n == (idx - i32(mp_))).astype(f32)
-        nplus = jnp.where(is_bnd, e, crow)                      # sign +1
-        zr = _vecmat(nplus, K)
-        z = zr[:, :np_]
-        r = zr[:, np_:]
-        # EQUALITY steps to l, FIXED to xl (ref _selected_bound semantics)
-        b_gen = jnp.sum(jnp.where(iot_m == cidx, lo, f32(0.0)),
-                        axis=1, keepdims=True)
-        b_bnd = jnp.sum(jnp.where(iot_n == (idx - i32(mp_)), xlo, f32(0.0)),
-                        axis=1, keepdims=True)
-        b = jnp.where(is_bnd, b_bnd, b_gen)
-        nz = jnp.sum(nplus * z, axis=1, keepdims=True)
-        nn = jnp.sum(nplus * nplus, axis=1, keepdims=True)
-        nz_safe = jnp.where(nz != f32(0.0), nz, f32(1.0))
-        nx = jnp.sum(nplus * x, axis=1, keepdims=True)
-        zz = jnp.sum(z * z, axis=1, keepdims=True)
-        t = jnp.where(zz > f32(0.0), (b - nx) / nz_safe, f32(0.0))
-        t = jnp.where(act, t, f32(0.0))          # frozen lanes: no motion
-        r_head = jnp.where(iot_n < q, r, f32(0.0))
-        u2 = u - t * r_head
-        u2 = jnp.where(iot_n == q, u2 + t, u2)
-        x2 = x + t * z
-        dependent = nz <= dep_thr * nn
-        dsafe = jnp.where(dependent, f32(1.0), nz)
-        zn = z / dsafe
-        u_upd = jnp.where(act, z, f32(0.0))
-        K2 = K - _bouter(u_upd,
-                         jnp.concatenate([z, r_head], axis=1) / dsafe)
-        K2 = jnp.where(
-            act[:, :, None] & (lane2 == (i32(np_) + q)[:, :, None]),
-            zn[:, :, None], K2)
-        status2 = jnp.where(act & (iot_mt == idx), st, status)
-        aorder2 = jnp.where(act & (iot_n == q), idx, aorder)
-        statk2 = jnp.where(act & (iot_n == q), st.astype(f32), statk)
-        term2 = jnp.where(act & dependent, i32(LINEAR_DEPENDENCY_DETECTED),
-                          term)
-        q2 = jnp.where(act, q + i32(1), q)
-        rem2 = jnp.where(act & (iot_mt == idx), f32(0.0), rem)
-        return (rem2, x2, K2, u2, status2, aorder2, statk2, term2, q2)
-
-    eq0 = (eqm, x0, K0, jnp.zeros((P, np_), f32),
-           jnp.zeros((P, mtp_), jnp.int32),
-           jnp.full((P, np_), -1, jnp.int32),
-           jnp.zeros((P, np_), f32), term0, zc)
-    (_, x0, K0, u0, status0, aorder0, statk0, term0, q0) = (
-        jax.lax.while_loop(eq_cond, eq_body, eq0))
-    term0 = jnp.where(over & (term0 == i32(RUNNING)),
-                      i32(OVERCONSTRAINED_PROBLEM), term0)
+        x0, u0 = closed(H0, N0, b0, sk0)
+        (x0, H0, N0, u0, stc0, stb0, ao0, sk0, _, q0, it0) = lax.while_loop(
+            pro_cond, pro_body,
+            (x0, H0, N0, u0, stc0, stb0, ao0, sk0, b0, q0, it0))
+        # the first free slot takes the first candidate
+        scal0 = jnp.where(iot8 == 6, argmin((sk0 != i32(0)).astype(i32)),
+                          scal0)
 
     init = (
-        x0, K0, u0, status0, aorder0, statk0, jnp.zeros((P, np_), f32),
-        q0, zc, term0, zc, zc - 1, zc, q0,
+        x0, H0, N0, u0, stc0, stb0, ao0, sk0, jnp.zeros((np_,), f32),
+        q0, it0, term0,
+        pick(scal0, iot8 == 3), pick(scal0, iot8 == 4),
+        pick(scal0, iot8 == 5), pick(scal0, iot8 == 6),
     )
-    out = _packed_iterate(
-        G, C_ref[0], l_ref[0], u_ref[0], xl_ref[0], xu_ref[0],
-        tr0, init, n=n, m=m, np_=np_, mp_=mp_, mtp_=mtp_,
-        max_iter=max_iter, P=P)
-    (x, K, uvec, status, aorder, statk, nplus, q, it, term, skip1,
-     sc_idx, sc_st, sc_slot) = out
-    term = jnp.where(term == i32(RUNNING), i32(MAX_ITER_REACHED),
-                     term).astype(jnp.int32)
+    (x, H, NsT, uvec, stc, stb, ao, _, _, q, it, term, skip1, sc_idx, sc_st,
+     sc_slot) = lax.while_loop(cond, body, init)
+    term = jnp.where(term == i32(RUNNING), i32(MAX_ITER_REACHED), term)
 
-    x_out[0] = x
-    u_out[0] = uvec
-    st_out[0] = status
-    ao_out[0] = aorder
-    K_out[0] = K
-    fs_out[0] = tr0 * (jax.lax.broadcasted_iota(
-        jnp.int32, (P, 8), 1) == 0).astype(f32)
-    zero = jnp.zeros((P, 1), jnp.int32)
-    scal_out[0] = jnp.concatenate(
-        [q, it, term, skip1, sc_idx, sc_st, sc_slot, zero], axis=1)
-
-
-def _kernel_packed_warm(
-    G_ref, C_ref, l_ref, u_ref, xl_ref, xu_ref, a_ref,
-    K0_ref, st0_ref, ao0_ref, sk0_ref, b0_ref, scal0_ref,
-    x_out, u_out, st_out, ao_out, scal_out, K_out, fs_out,
-    *, n, m, np_, mp_, mtp_, max_iter, P,
-):
-    """Packed kernel with the WARM-CARRY INIT fused in as a prologue.
-
-    The carry (K = [H; N*], status, aorder, statk, q from the previous
-    solve of a trajectory) plus the NEW a and active signed bounds b_act
-    come in via refs; the prologue computes the closed-form primal/dual
-    point through the carried operators
-
-        x = N*^T b_act - H a = K^T [-a; b_act],   u = (K [a + G x])[np_:]
-
-    then runs the u<0 one-at-a-time deactivation downdates (the in-kernel
-    analog of fast._init_fast_from_carry / _deactivate_negative_u, ref:
-    src/experimental/GoldfarbIdnaniSolver.cpp:83-108) before entering the
-    main GI loop. This replaces the XLA carry-init (3 batched matvecs + a
-    whole-batch downdate while loop + the K0 round trip through a separate
-    program region) with VMEM-resident work inside the single launch.
-    """
-    f32 = jnp.float32
-    i32 = lambda v: jnp.asarray(v, jnp.int32)  # noqa: E731
-    one = i32(1)
-    G = G_ref[0]
-    C = C_ref[0]
-    a = a_ref[0]                                    # (P, np_)
-    K = K0_ref[0]                                   # (P, 2np_, np_)
-    status = st0_ref[0]
-    aorder = ao0_ref[0]
-    statk = sk0_ref[0]
-    b_act = b0_ref[0]                               # (P, np_) signed
-    scal0 = scal0_ref[0]                            # (P, 8) int32
-    q = scal0[:, 0:1]
-
-    iot_n = jax.lax.broadcasted_iota(jnp.int32, (1, np_), 1)
-    iotf_n = iot_n.astype(f32)
-    row3 = jax.lax.broadcasted_iota(jnp.int32, (1, np_, 1), 1)
-    lane2 = jax.lax.broadcasted_iota(jnp.int32, (1, 1, 2 * np_), 2)
-    eyeH = (row3 == lane2).astype(f32)  # H-diagonal selector (lanes < np_)
-    tr0 = jnp.maximum(jnp.sum(jnp.sum(K * eyeH, axis=2), axis=1,
-                              keepdims=True), f32(1e-30))        # (P, 1)
-
-    def closed_form(K, b, statk):
-        # x = N*^T b_act - H a = K @ [-a; b_act] (contract the 2np_ lanes)
-        bf = jnp.concatenate([-a, b], axis=1)       # (P, 2np_)
-        x = _bmv(K, bf)
-        u = _vecmat(a + _bmv(G, x), K)[:, np_:]
-        return x, jnp.where(statk != f32(0.0), u, f32(0.0))
-
-    x, uvec = closed_form(K, b_act, statk)
-
-    # ---- u < 0 deactivation downdates (one slot at a time per lane;
-    # hole-based slots: a removal zeroes the slot, no shifts) ----
-    utol = f32(-1e-5)
-
-    def worst(uv, statk):
-        elig = ((statk != f32(0.0)) & (statk != f32(EQUALITY))
-                & (statk != f32(FIXED)))
-        vals = jnp.where(elig, uv, f32(0.0))
-        mn = jnp.min(vals, axis=1, keepdims=True)
-        lpos = jnp.min(jnp.where(vals == mn, iotf_n, f32(BIG)),
-                       axis=1, keepdims=True).astype(jnp.int32)
-        return mn, lpos
-
-    def d_cond(c):
-        uv, statk = c[1], c[4]
-        mn, _ = worst(uv, statk)
-        return jnp.max(jnp.where(mn < utol, f32(1.0), f32(0.0))) > f32(0.0)
-
-    def d_body(c):
-        K, uv, status, aorder, statk, b, q, x, it = c
-        mn, lpos = worst(uv, statk)
-        act = mn < utol                              # (P, 1)
-        lmaskL = lane2 == (i32(np_) + lpos)[:, :, None]
-        nl = jnp.sum(jnp.where(lmaskL, K, f32(0.0)), axis=2)    # (P, np_)
-        v = _bmv(G, nl)
-        w = _vecmat(v, K)[:, np_:]
-        wl = jnp.sum(jnp.where(iot_n == lpos, w, f32(0.0)), axis=1,
-                     keepdims=True)
-        wl_safe = jnp.where(jnp.abs(wl) > f32(0.0), wl, f32(1.0))
-        wmask = jnp.where((statk != f32(0.0)) & (iot_n != lpos), w,
-                          f32(0.0))
-        K2 = K - _bouter(
-            jnp.where(act, nl, f32(0.0)),
-            jnp.concatenate([-nl, wmask], axis=1) / wl_safe)
-        llane = (i32(np_) + lpos)[:, :, None]
-        K2 = jnp.where(act[:, :, None] & (lane2 == llane), f32(0.0), K2)
-        rem_idx = jnp.sum(jnp.where(
-            iot_n == lpos,
-            jnp.clip(aorder, i32(0), i32(mtp_ - 1)).astype(f32), f32(0.0)),
-            axis=1, keepdims=True).astype(jnp.int32)
-        iot_mt = jax.lax.broadcasted_iota(jnp.int32, (1, mtp_), 1)
-        status2 = jnp.where(act & (iot_mt == rem_idx), i32(0), status)
-        aorder2 = jnp.where(act & (iot_n == lpos), i32(-1), aorder)
-        statk2 = jnp.where(act & (iot_n == lpos), f32(0.0), statk)
-        b2 = jnp.where(act & (iot_n == lpos), f32(0.0), b)
-        q2 = jnp.where(act, q - one, q)
-        x2, u2 = closed_form(K2, b2, statk2)
-        x2 = jnp.where(act, x2, x)
-        u2 = jnp.where(act, u2, uv)
-        it2 = jnp.where(act, it + one, it)
-        return (K2, u2, status2, aorder2, statk2, b2, q2, x2, it2)
-
-    d0 = (K, uvec, status, aorder, statk, b_act, q, x,
-          jnp.zeros((P, 1), jnp.int32))
-    (K, uvec, status, aorder, statk, b_act, q, x, it0) = (
-        jax.lax.while_loop(d_cond, d_body, d0))
-
-    zc = jnp.zeros((P, 1), jnp.int32)
-    init = (
-        x, K, uvec, status, aorder, statk, jnp.zeros((P, np_), f32),
-        q, it0, jnp.full((P, 1), RUNNING, jnp.int32), zc, zc - 1, zc, q,
-    )
-    out = _packed_iterate(
-        G, C, l_ref[0], u_ref[0], xl_ref[0], xu_ref[0],
-        tr0, init, n=n, m=m, np_=np_, mp_=mp_, mtp_=mtp_,
-        max_iter=max_iter, P=P)
-    (x, K, uvec, status, aorder, statk, nplus, q, it, term, skip1,
-     sc_idx, sc_st, sc_slot) = out
-    term = jnp.where(term == i32(RUNNING), i32(MAX_ITER_REACHED),
-                     term).astype(jnp.int32)
-
-    x_out[0] = x
-    u_out[0] = uvec
-    st_out[0] = status
-    ao_out[0] = aorder
-    K_out[0] = K
-    fs_out[0] = tr0 * (jax.lax.broadcasted_iota(
-        jnp.int32, (P, 8), 1) == 0).astype(f32)
-    zero = jnp.zeros((P, 1), jnp.int32)
-    scal_out[0] = jnp.concatenate(
-        [q, it, term, skip1, sc_idx, sc_st, sc_slot, zero], axis=1)
-
-
-# packs proven (or healed) at runtime, keyed by padded (np_, mp_):
-# populated by solver.fast.solve_refined_pallas when a Mosaic scoped-VMEM
-# compile failure forces a smaller pack than _auto_pack's estimate
-_PROVEN_PACK: dict = {}
-
-
-def _auto_pack(np_: int, mp_: int) -> int:
-    """Largest pack size whose scoped-VMEM footprint fits the VMEM limit.
-
-    Empirical model from v5e compile failures: the per-problem scoped
-    footprint is ~5x the raw f32 bytes of (G + C + 3K + rows); packs of
-    {24, 16, 8, 4, 2, 1} are tried against a 14MB budget (the ~16MB/core
-    scoped VMEM of v4/v5e/v5p/v6e minus headroom; pack 24 measured +3.6%
-    over 16 at n=50 on v5e). The 32 rung stays behind
-    ``JRLQP_AUTO_PACK_MAX``: measured 0.9MB over the scoped limit at
-    n=50, and one deployed backend surfaces such overflows as a bare
-    INVALID_ARGUMENT (which the self-heal in solve_refined_pallas also
-    catches). Adjust with ``pack=``, ``JRLQP_AUTO_PACK_MAX``, or
-    ``JRLQP_VMEM_BUDGET_MB``."""
-    raw = (np_ * np_ + mp_ * np_ + 3 * (2 * np_ * np_)
-           + 8 * np_ + 4 * mp_) * 4
-    per_problem = 5 * raw
-    # 14MB default budget: measured on v5e at n=50, pack 24 compiles
-    # (13.75MB by this model) and pack 32 overflows the 16MB scoped limit
-    # by 0.9MB -- the model tracks the real footprint closely
-    budget = int(os.environ.get("JRLQP_VMEM_BUDGET_MB", "14")) * 2 ** 20
-    cap = int(os.environ.get("JRLQP_AUTO_PACK_MAX", "24"))
-    for pack in (32, 24, 16, 8, 4, 2):
-        if pack <= cap and pack * per_problem <= budget:
-            return pack
-    return 1
+    x_out[...] = x
+    u_out[...] = uvec
+    stc_out[...] = stc
+    stb_out[...] = stb
+    ao_out[...] = ao
+    H_out[...] = H
+    N_out[...] = NsT
+    scal = jnp.zeros((8,), i32)
+    for k, v in enumerate((q, it, term, skip1, sc_idx, sc_st, sc_slot)):
+        scal = jnp.where(iot8 == k, v, scal)
+    scal_out[...] = scal
 
 
 def run_loop_pallas(pb32: QPProblem, state0, max_iter: int,
-                    interpret: bool = False, pack: int | None = None,
-                    presort: bool = True, fused_init: bool = False):
-    """Run the GI loop via the Pallas kernel for a batch of f32 problems.
+                    interpret: bool = False, num_warps: int | None = None,
+                    warm_prologue: bool = False):
+    """Run the GI loop with the Triton kernel on a batch of f32 problems.
 
-    ``pb32``: stacked QPProblem (leading batch dim, float32). ``state0``: the
-    batched FastState from vmapped ``_init_fast``. ``pack``: problems per
-    grid program (1 = branchy single-problem kernel; >1 = vectorized masked
-    kernel, ~4x faster per problem; None = largest size fitting the scoped
-    VMEM limit). ``presort``: order the batch by a difficulty proxy (count
-    of violated constraints at the init point) before packing, so pack
-    members finish together instead of idling until the slowest random
-    member (measured: pack-max iterations 80 -> ~65 at n=50, m=100,
-    batch 4096 -- a ~20% kernel-time cut); results are restored to input
-    order, bitwise identical per problem (lanes are independent).
-    Returns a dict of final batched state pieces
-    (x, u, status, aorder, q, it, term, H, Ns) in the library's (m+n)
-    index layout.
-
-    ``fused_init=True`` runs the cold init (batched Cholesky, H0 = G^-1,
-    x0 = -H0 a, equality/fixed auto-activation) INSIDE the kernel as a
-    prologue (``_kernel_packed_fused``): no XLA init, no (B, 2np_, np_) K0
-    HBM round trip. ``state0`` is ignored (pass None); requires pack > 1.
-    The presort proxy is then violations at the diagonal estimate
-    x~ = -a/diag(G) (x0 does not exist before the kernel runs).
+    ``pb32``: stacked QPProblem (leading batch dim, float32). ``state0``: a
+    batched :class:`jrlqp_tpu.solver.fast.FastState` (cold init, warm
+    start, or a previous kernel state; slot holes allowed). ``num_warps``:
+    warps per program (None = :func:`default_warps`). ``warm_prologue``:
+    ``state0`` holds a previous solve's operators and active set (x and u
+    are ignored) for problems with the same G and C; the kernel first
+    computes the warm point and drops u < 0 slots, as
+    :func:`jrlqp_tpu.solver.fast._init_fast_from_carry` does in XLA.
+    Returns the final batched FastState in the library's (m+n) index
+    layout, with ``f`` left at zero (refinement recomputes it) and
+    ``hscale`` carried through.
     """
-    if pack is None:
-        key = (_round_up(pb32.a.shape[1] + 1, 8),
-               _round_up(max(pb32.C.shape[1], 1), 8))
-        pack = _PROVEN_PACK.get(key) or _auto_pack(*key)
-    if fused_init and pack <= 1:
-        raise ValueError("fused_init requires the packed kernel (pack > 1)")
-    inv = None
-    if presort and pb32.a.shape[0] > pack > 1:
-        if fused_init:
-            dg = jnp.diagonal(pb32.G, axis1=-2, axis2=-1)
-            x_est = -pb32.a / jnp.where(dg > 0, dg, 1.0)
-        else:
-            x_est = state0.x
-        cx = jnp.einsum("bij,bj->bi", pb32.C, x_est)
-        nv = (jnp.sum((cx < pb32.l) | (cx > pb32.u), axis=1)
-              + jnp.sum((x_est < pb32.xl) | (x_est > pb32.xu), axis=1))
-        order = jnp.argsort(nv)
-        inv = jnp.argsort(order)
-        take = lambda a: jnp.take(a, order, axis=0)  # noqa: E731
-        pb32 = jax.tree.map(take, pb32)
-        if state0 is not None:
-            state0 = jax.tree.map(take, state0)
-    if pack > 1:
-        Borig = pb32.a.shape[0]
-        pad = (-Borig) % pack
-        if pad:
-            idx = jnp.arange(Borig + pad) % Borig  # wrap: works for B < pack
+    from ...solver.fast import FastState
 
-            def _padb(a):
-                return jnp.take(a, idx, axis=0)
-
-            pb32 = jax.tree.map(_padb, pb32)
-            if state0 is not None:
-                state0 = jax.tree.map(_padb, state0)
     B, n = pb32.a.shape
     m = pb32.C.shape[1]
-    np_ = _round_up(n + 1, 8)
-    mp_ = _round_up(max(m, 1), 8)
-    mtp_ = mp_ + np_
-    f32 = jnp.float32
+    np_, mp_ = padded_dims(n, m)
+    if np_ > MAX_NP:
+        raise ValueError(f"n={n} is above the kernel's limit "
+                         f"(padded {np_} > {MAX_NP})")
+    if num_warps is None:
+        num_warps = default_warps(np_)
+    f32, i32 = jnp.float32, jnp.int32
 
     def pad2(A, r, c):
-        return jnp.zeros((B, r, c), f32).at[:, : A.shape[1], : A.shape[2]].set(
-            A.astype(f32)
-        )
+        return jnp.zeros((B, r, c), f32).at[:, :A.shape[1], :A.shape[2]].set(
+            A.astype(f32))
 
-    def padrow(v, c, fill=0.0):
-        out = jnp.full((B, 1, c), fill, f32)
-        return out.at[:, 0, : v.shape[1]].set(
-            jnp.nan_to_num(v.astype(f32), posinf=BIG * 10, neginf=-BIG * 10)
-        )
+    def padv(v, c, fill=0.0, dtype=f32):
+        v = v.astype(dtype)
+        if dtype == f32:
+            v = jnp.nan_to_num(v, posinf=BIG * 10, neginf=-BIG * 10)
+        return jnp.full((B, c), fill, dtype).at[:, :v.shape[1]].set(v)
 
-    G = pad2(pb32.G, np_, np_)
-    if pack > 1:
-        # packed kernels take C^T (np_, mp_) and K = [H | Ns^T]
-        # (np_, 2np_) -- the lane-major layouts (_packed_iterate docstring)
-        C_in = pad2(jnp.swapaxes(pb32.C, 1, 2), np_, mp_)
-    else:
-        C_in = pad2(pb32.C, mp_, np_)
-    l = padrow(pb32.l, mp_, fill=-BIG * 10)
-    u = padrow(pb32.u, mp_, fill=BIG * 10)
-    xl = padrow(pb32.xl, np_, fill=-BIG * 10)
-    xu = padrow(pb32.xu, np_, fill=BIG * 10)
-    if fused_init:
-        # identity-pad G so the in-kernel Cholesky/inverse stay exact on
-        # the padded rows; a-row zero-padded => x0 padding stays 0
-        kpad = jnp.arange(n, np_)
-        G = G.at[:, kpad, kpad].set(1.0)
-        a_row = padrow(pb32.a, np_)
-        return _run_fused(G, C_in, l, u, xl, xu, a_row, inv, Borig, B, n, m,
-                          np_, mp_, mtp_, max_iter, pack, interpret)
-    if pack > 1:
-        K0 = jnp.concatenate(
-            [pad2(state0.H, np_, np_),
-             jnp.swapaxes(pad2(state0.Ns, np_, np_), 1, 2)], axis=2)
-    else:
-        K0 = jnp.concatenate([pad2(state0.H, np_, np_),
-                              pad2(state0.Ns, np_, np_)], axis=1)
-    x0 = padrow(state0.x, np_)
-    u0 = padrow(state0.u[:, : n + 1], np_)
-    st_c = state0.status[:, :m]
-    st_b = state0.status[:, m:]
-    st0 = jnp.zeros((B, 1, mtp_), jnp.int32)
-    st0 = st0.at[:, 0, :m].set(st_c).at[:, 0, mp_:mp_ + n].set(st_b)
-    ao = state0.aorder
-    ao_remap = jnp.where(ao >= m, ao - m + mp_, ao)
-    ao_remap = jnp.where(ao < 0, -1, ao_remap)
-    ao0 = jnp.full((B, 1, np_), -1, jnp.int32).at[:, 0, :n].set(ao_remap)
-    # per-slot activation status (f32) of the initially-active constraints
-    # (one-hot contraction, not take_along_axis: TPU gather is ~100x slower)
+    st = state0
+    valid0 = st.aorder >= 0
+    ao_remap = jnp.where(st.aorder >= m, st.aorder - m + mp_, st.aorder)
+    ao_remap = jnp.where(valid0, ao_remap, -1)
+    sk0 = jnp.where(valid0, jnp.take_along_axis(
+        st.status, jnp.where(valid0, st.aorder, 0), axis=1), 0)
+    sc_idx0 = jnp.where(st.sc_idx >= m, st.sc_idx - m + mp_, st.sc_idx)
+    # pending-candidate slot: the FREE slot holding a nonzero multiplier
+    # (a resumed state with skip1 set), else the first free slot; for a
+    # compact fresh state this is exactly q
     k = jnp.arange(n)
-    valid0 = ao >= 0   # hole-aware (resumed kernel states may hold holes)
-    oh0 = jax.nn.one_hot(jnp.where(valid0, ao, -1), m + n, dtype=f32)
-    statk_n = jnp.einsum("bkj,bj->bk", oh0, state0.status.astype(f32))
-    sk0 = jnp.zeros((B, 1, np_), f32).at[:, 0, :n].set(statk_n)
-    sc_idx0 = jnp.where(state0.sc_idx >= m, state0.sc_idx - m + mp_,
-                        state0.sc_idx)
-    # pending-candidate slot: the unique FREE slot holding a nonzero
-    # multiplier (a mid-solve resume with skip1=1), else the first free
-    # slot; for a compact fresh state this is exactly q
-    free0 = ao < 0
-    cand_key = jnp.where(free0 & (state0.u[:, :n] != 0), k[None, :],
-                         jnp.where(free0, n + k[None, :],
-                                   2 * n + k[None, :]))
-    sc_slot0 = jnp.argmin(cand_key, axis=1).astype(jnp.int32)
-    scal0 = jnp.stack(
-        [
-            state0.q, state0.it, state0.term,
-            state0.skip1.astype(jnp.int32), sc_idx0, state0.sc_status,
-            sc_slot0, jnp.zeros_like(state0.q),
-        ],
-        axis=-1,
-    )[:, None, :].astype(jnp.int32)
-    # f32 scalar row: slot 0 carries hscale (trace of the INIT H0) so the
-    # dependence/zero-z thresholds survive a resumed (phase-2) run
-    fscal0 = jnp.zeros((B, 1, 8), f32).at[:, 0, 0].set(
-        state0.hscale.astype(f32))
+    free0 = ~valid0
+    cand_key = jnp.where(free0 & (st.u[:, :n] != 0), k,
+                         jnp.where(free0, n + k, 2 * n + k))
+    sc_slot0 = jnp.argmin(cand_key, axis=1)
+    scal0 = jnp.stack([st.q, st.it, st.term, st.skip1, sc_idx0,
+                       st.sc_status, sc_slot0, jnp.zeros_like(st.q)],
+                      axis=-1).astype(i32)
+    hs0 = jnp.zeros((B, 8), f32).at[:, 0].set(st.hscale.astype(f32))
+
+    inputs = (
+        pad2(pb32.G, np_, np_), pad2(pb32.C, mp_, np_),
+        padv(pb32.l, mp_, -BIG * 10), padv(pb32.u, mp_, BIG * 10),
+        padv(pb32.xl, np_, -BIG * 10), padv(pb32.xu, np_, BIG * 10),
+        pad2(st.H, np_, np_), pad2(jnp.swapaxes(st.Ns, 1, 2), np_, np_),
+        padv(st.x, np_), padv(st.u[:, :n + 1], np_),
+        padv(st.status[:, :m], mp_, 0, i32),
+        padv(st.status[:, m:], np_, 0, i32),
+        padv(ao_remap, np_, -1, i32), padv(sk0, np_, 0, i32),
+        scal0, hs0,
+    )
+    shapes = [(np_, np_), (mp_, np_), (mp_,), (mp_,), (np_,), (np_,),
+              (np_, np_), (np_, np_), (np_,), (np_,), (mp_,), (np_,),
+              (np_,), (np_,), (8,), (8,)]
+    if warm_prologue:
+        # per-slot signed active bounds of the NEW problem (sign convention
+        # of warm_start._active_normals_and_bounds)
+        stat = jnp.where(valid0, sk0, 0)
+        upperish = (stat == UPPER) | (stat == UPPER_BOUND)
+        idx = jnp.where(valid0, st.aorder, 0)
+        lo = jnp.take_along_axis(jnp.concatenate([pb32.l, pb32.xl], 1), idx, 1)
+        hi = jnp.take_along_axis(jnp.concatenate([pb32.u, pb32.xu], 1), idx, 1)
+        b_act = jnp.where(valid0, jnp.where(upperish, -hi, lo), 0.0)
+        inputs += (padv(pb32.a, np_), padv(b_act, np_))
+        shapes += [(np_,), (np_,)]
 
     def spec(*shape):
-        # index_map must return int32: bare 0s trace as int64 under x64,
-        # which Mosaic cannot return from the index-map function
-        return pl.BlockSpec(
-            (1,) + shape,
-            lambda i, _k=len(shape): (i,) + (jnp.zeros((), jnp.int32),) * _k,
-            memory_space=pltpu.VMEM,
-        )
+        zeros = (0,) * len(shape)
+        return pl.BlockSpec((None,) + shape, lambda i: (i,) + zeros)
 
-    if pack > 1:
-        P = pack
-        BP = B // P
-        kern = functools.partial(
-            _kernel_packed, n=n, m=m, np_=np_, mp_=mp_, mtp_=mtp_,
-            max_iter=max_iter, P=P,
-        )
+    def out(shape, dtype):
+        return jax.ShapeDtypeStruct((B,) + shape, dtype)
 
-        def fold_m(A):   # (B, r, c) -> (BP, P, r, c)
-            return A.reshape(BP, P, A.shape[1], A.shape[2])
-
-        def fold_r(A):   # (B, 1, c) -> (BP, P, c)
-            return A.reshape(BP, P, A.shape[2])
-
-        x, uvec, status, aorder, scal, K, fs = pl.pallas_call(
-            kern,
-            grid=(BP,),
-            in_specs=[
-                spec(P, np_, np_), spec(P, np_, mp_), spec(P, mp_),
-                spec(P, mp_), spec(P, np_), spec(P, np_),
-                spec(P, np_, 2 * np_), spec(P, np_), spec(P, np_),
-                spec(P, mtp_), spec(P, np_), spec(P, np_), spec(P, 8),
-                spec(P, 8),
-            ],
-            out_specs=[
-                spec(P, np_), spec(P, np_), spec(P, mtp_), spec(P, np_),
-                spec(P, 8), spec(P, np_, 2 * np_), spec(P, 8),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((BP, P, np_), f32),
-                jax.ShapeDtypeStruct((BP, P, np_), f32),
-                jax.ShapeDtypeStruct((BP, P, mtp_), jnp.int32),
-                jax.ShapeDtypeStruct((BP, P, np_), jnp.int32),
-                jax.ShapeDtypeStruct((BP, P, 8), jnp.int32),
-                jax.ShapeDtypeStruct((BP, P, np_, 2 * np_), f32),
-                jax.ShapeDtypeStruct((BP, P, 8), f32),
-            ],
-            interpret=interpret,
-        )(fold_m(G), fold_m(C_in), fold_r(l), fold_r(u), fold_r(xl),
-          fold_r(xu), fold_m(K0), fold_r(x0), fold_r(u0), fold_r(st0),
-          fold_r(ao0), fold_r(sk0), fold_r(scal0), fold_r(fscal0))
-        # unfold pack dim and drop batch padding
-        x = x.reshape(B, 1, np_)
-        uvec = uvec.reshape(B, 1, np_)
-        status = status.reshape(B, 1, mtp_)
-        aorder = aorder.reshape(B, 1, np_)
-        scal = scal.reshape(B, 1, 8)
-        K = K.reshape(B, np_, 2 * np_)
-        fs = fs.reshape(B, 1, 8)
-        x, uvec, status, aorder, scal, K, fs = (
-            x[:Borig], uvec[:Borig], status[:Borig], aorder[:Borig],
-            scal[:Borig], K[:Borig], fs[:Borig])
-    else:
-        kern = functools.partial(
-            _kernel, n=n, m=m, np_=np_, mp_=mp_, mtp_=mtp_,
-            max_iter=max_iter
-        )
-        x, uvec, status, aorder, scal, K, fs = pl.pallas_call(
-            kern,
-            grid=(B,),
-            in_specs=[
-                spec(np_, np_), spec(mp_, np_), spec(1, mp_), spec(1, mp_),
-                spec(1, np_), spec(1, np_), spec(2 * np_, np_),
-                spec(1, np_), spec(1, np_), spec(1, mtp_), spec(1, np_),
-                spec(1, np_), spec(1, 8), spec(1, 8),
-            ],
-            out_specs=[
-                spec(1, np_), spec(1, np_), spec(1, mtp_), spec(1, np_),
-                spec(1, 8), spec(2 * np_, np_), spec(1, 8),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((B, 1, np_), f32),
-                jax.ShapeDtypeStruct((B, 1, np_), f32),
-                jax.ShapeDtypeStruct((B, 1, mtp_), jnp.int32),
-                jax.ShapeDtypeStruct((B, 1, np_), jnp.int32),
-                jax.ShapeDtypeStruct((B, 1, 8), jnp.int32),
-                jax.ShapeDtypeStruct((B, 2 * np_, np_), f32),
-                jax.ShapeDtypeStruct((B, 1, 8), f32),
-            ],
-            interpret=interpret,
-        )(G, C_in, l, u, xl, xu, K0, x0, u0, st0, ao0, sk0, scal0, fscal0)
-
-    return _postprocess(x, uvec, status, aorder, scal, K, fs, inv,
-                        n, m, np_, mp_)
-
-
-def _postprocess(x, uvec, status, aorder, scal, K, fs, inv, n, m, np_, mp_):
-    """Restore caller order and remap kernel index layout to (m+n)."""
-    if inv is not None:  # restore caller order after presort
-        x, uvec, status, aorder, scal, K, fs = (
-            jnp.take(a, inv, axis=0)
-            for a in (x, uvec, status, aorder, scal, K, fs))
-    status_full = jnp.concatenate(
-        [status[:, 0, :m], status[:, 0, mp_:mp_ + n]], axis=1
-    )
-    ao_out = aorder[:, 0, :n]
-    ao_back = jnp.where(ao_out >= mp_, ao_out - mp_ + m, ao_out)
-    ao_back = jnp.where(ao_out < 0, -1, ao_back)
-    sc_raw = scal[:, 0, 4]
-    sc_back = jnp.where(sc_raw >= mp_, sc_raw - mp_ + m, sc_raw)
-    if K.shape[1] == np_:  # packed layout: K = [H | Ns^T] (np_, 2np_)
-        H = K[:, :n, :n]
-        Ns = jnp.swapaxes(K[:, :, np_:], 1, 2)[:, :n, :n]
-    else:                  # single-problem layout: K = [H; Ns] (2np_, np_)
-        H = K[:, :n, :n]
-        Ns = K[:, np_:np_ + n, :n]
-    return dict(
-        x=x[:, 0, :n],
-        u=uvec[:, 0, :n],
-        status=status_full,
-        aorder=ao_back,
-        q=scal[:, 0, 0],
-        it=scal[:, 0, 1],
-        term=scal[:, 0, 2],
-        skip1=scal[:, 0, 3],
-        sc_idx=sc_back,
-        sc_status=scal[:, 0, 5],
-        H=H,
-        Ns=Ns,
-        hscale=fs[:, 0, 0],
-    )
-
-
-def _run_fused(G, C, l, u, xl, xu, a_row, inv, Borig, B, n, m,
-               np_, mp_, mtp_, max_iter, pack, interpret):
-    """Launch the fused-init packed kernel (see _kernel_packed_fused)."""
-    f32 = jnp.float32
-    P = pack
-    BP = B // P
-
-    def spec(*shape):
-        return pl.BlockSpec(
-            (1,) + shape,
-            lambda i, _k=len(shape): (i,) + (jnp.zeros((), jnp.int32),) * _k,
-            memory_space=pltpu.VMEM,
-        )
-
-    def fold_m(A):
-        return A.reshape(BP, P, A.shape[1], A.shape[2])
-
-    def fold_r(A):
-        return A.reshape(BP, P, A.shape[2])
-
-    kern = functools.partial(
-        _kernel_packed_fused, n=n, m=m, np_=np_, mp_=mp_, mtp_=mtp_,
-        max_iter=max_iter, P=P,
-    )
-    x, uvec, status, aorder, scal, K, fs = pl.pallas_call(
-        kern,
-        grid=(BP,),
-        in_specs=[
-            spec(P, np_, np_), spec(P, np_, mp_), spec(P, mp_),
-            spec(P, mp_), spec(P, np_), spec(P, np_), spec(P, np_),
-        ],
-        out_specs=[
-            spec(P, np_), spec(P, np_), spec(P, mtp_), spec(P, np_),
-            spec(P, 8), spec(P, np_, 2 * np_), spec(P, 8),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((BP, P, np_), f32),
-            jax.ShapeDtypeStruct((BP, P, np_), f32),
-            jax.ShapeDtypeStruct((BP, P, mtp_), jnp.int32),
-            jax.ShapeDtypeStruct((BP, P, np_), jnp.int32),
-            jax.ShapeDtypeStruct((BP, P, 8), jnp.int32),
-            jax.ShapeDtypeStruct((BP, P, np_, 2 * np_), f32),
-            jax.ShapeDtypeStruct((BP, P, 8), f32),
-        ],
+    out_shapes = [((np_,), f32), ((np_,), f32), ((mp_,), i32),
+                  ((np_,), i32), ((np_,), i32), ((8,), i32),
+                  ((np_, np_), f32), ((np_, np_), f32)]
+    x, uvec, stc, stb, ao, scal, H, NsT = pl.pallas_call(
+        functools.partial(_kernel, n=n, m=m, np_=np_, mp_=mp_,
+                          max_iter=max_iter, warm=warm_prologue),
+        grid=(B,),
+        in_specs=[spec(*s) for s in shapes],
+        out_specs=[spec(*s) for s, _ in out_shapes],
+        out_shape=[out(s, d) for s, d in out_shapes],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
         interpret=interpret,
-    )(fold_m(G), fold_m(C), fold_r(l), fold_r(u), fold_r(xl), fold_r(xu),
-      fold_r(a_row))
-    x = x.reshape(B, 1, np_)[:Borig]
-    uvec = uvec.reshape(B, 1, np_)[:Borig]
-    status = status.reshape(B, 1, mtp_)[:Borig]
-    aorder = aorder.reshape(B, 1, np_)[:Borig]
-    scal = scal.reshape(B, 1, 8)[:Borig]
-    K = K.reshape(B, np_, 2 * np_)[:Borig]
-    fs = fs.reshape(B, 1, 8)[:Borig]
-    return _postprocess(x, uvec, status, aorder, scal, K, fs, inv,
-                        n, m, np_, mp_)
+        name="gi_loop",
+    )(*inputs)
 
-
-def run_warm_loop_pallas(pb32: QPProblem, H, Ns, status, aorder, q,
-                         max_iter: int, interpret: bool = False,
-                         pack: int | None = None):
-    """Warm-carry batched solve with the carry-init fused into the kernel.
-
-    ``H``/``Ns``/``status``/``aorder``/``q`` are the previous solve's
-    operators and active set (fast.WarmCarry leaves, library index layout).
-    The XLA side only pads/remaps the carry and gathers the per-slot signed
-    active bounds b_act for the NEW problem bounds; everything else -- the
-    closed-form primal/dual point, the u<0 deactivation downdates, the GI
-    loop -- runs inside one kernel launch (``_kernel_packed_warm``).
-
-    Returns the same dict as :func:`run_loop_pallas`, or ``None`` when the
-    resolved pack is 1 (the warm kernel is packed-only; the caller falls
-    back to the XLA carry-init + standard kernel).
-    """
-    from ...types import UPPER as _UP, UPPER_BOUND as _UB
-
-    if pack is None:
-        key = (_round_up(pb32.a.shape[1] + 1, 8),
-               _round_up(max(pb32.C.shape[1], 1), 8))
-        pack = _PROVEN_PACK.get(key) or _auto_pack(*key)
-    if pack <= 1:
-        return None
-    B0, n = pb32.a.shape
-    m = pb32.C.shape[1]
-
-    # ---- b_act: per-slot signed active bounds from the NEW problem ----
-    # (sign convention of warm_start._active_normals_and_bounds: LOWER /
-    # EQUALITY -> l, UPPER -> -u, LOWER_BOUND/FIXED -> xl,
-    # UPPER_BOUND -> -xu; zero beyond q). Gathers go through a one-hot
-    # contraction: XLA's native gather lowering is ~100x slower on TPU
-    # (see fast._refine_batch) and this runs on EVERY warm trajectory step.
-    f32_ = jnp.float32
-    k = jnp.arange(n)
-    valid = aorder >= 0   # hole-aware (free-list slot layout)
-    idxs = jnp.where(valid, aorder, 0)
-    oh = jax.nn.one_hot(jnp.where(valid, idxs, -1), m + n, dtype=f32_)
-    sts = jnp.einsum("bkj,bj->bk", oh,
-                     status.astype(f32_)).astype(jnp.int32)
-    clamp = lambda v: jnp.clip(jnp.nan_to_num(  # noqa: E731
-        v.astype(f32_), posinf=1e30, neginf=-1e30), -1e30, 1e30)
-    lo_all = clamp(jnp.concatenate([pb32.l, pb32.xl], axis=1))
-    up_all = clamp(jnp.concatenate([pb32.u, pb32.xu], axis=1))
-    b_lo = jnp.einsum("bkj,bj->bk", oh, lo_all)
-    b_up = jnp.einsum("bkj,bj->bk", oh, up_all)
-    upperish = (sts == _UP) | (sts == _UB)
-    b_act = jnp.where(valid, jnp.where(upperish, -b_up, b_lo), 0.0)
-    statk = jnp.where(valid, sts, 0).astype(jnp.float32)
-
-    # ---- pad batch to a pack multiple ----
-    pad = (-B0) % pack
-    arrs = dict(G=pb32.G, C=pb32.C, l=pb32.l, u=pb32.u, xl=pb32.xl,
-                xu=pb32.xu, a=pb32.a, H=H, Ns=Ns, status=status,
-                aorder=aorder, q=q, b_act=b_act, statk=statk)
-    if pad:
-        idx0 = jnp.arange(B0 + pad) % B0
-        arrs = {kk: jnp.take(v, idx0, axis=0) for kk, v in arrs.items()}
-    B = B0 + pad
-    np_ = _round_up(n + 1, 8)
-    mp_ = _round_up(max(m, 1), 8)
-    mtp_ = mp_ + np_
-    f32 = jnp.float32
-
-    def pad2(A, r, c):
-        return jnp.zeros((B, r, c), f32).at[
-            :, : A.shape[1], : A.shape[2]].set(A.astype(f32))
-
-    def padrow(v, c, fill=0.0):
-        out = jnp.full((B, 1, c), fill, f32)
-        return out.at[:, 0, : v.shape[1]].set(
-            jnp.nan_to_num(v.astype(f32), posinf=BIG * 10, neginf=-BIG * 10)
-        )
-
-    G = pad2(arrs["G"], np_, np_)
-    C = pad2(jnp.swapaxes(arrs["C"], 1, 2), np_, mp_)  # C^T lane layout
-    l = padrow(arrs["l"], mp_, fill=-BIG * 10)
-    u = padrow(arrs["u"], mp_, fill=BIG * 10)
-    xl = padrow(arrs["xl"], np_, fill=-BIG * 10)
-    xu = padrow(arrs["xu"], np_, fill=BIG * 10)
-    a_row = padrow(arrs["a"], np_)
-    b0 = padrow(arrs["b_act"], np_)
-    sk0 = padrow(arrs["statk"], np_)
-    K0 = jnp.concatenate([pad2(arrs["H"], np_, np_),
-                          jnp.swapaxes(pad2(arrs["Ns"], np_, np_), 1, 2)],
-                         axis=2)
-    st_c = arrs["status"][:, :m]
-    st_b = arrs["status"][:, m:]
-    st0 = jnp.zeros((B, 1, mtp_), jnp.int32)
-    st0 = st0.at[:, 0, :m].set(st_c).at[:, 0, mp_:mp_ + n].set(st_b)
-    ao = arrs["aorder"]
-    ao_remap = jnp.where(ao >= m, ao - m + mp_, ao)
-    ao_remap = jnp.where(ao < 0, -1, ao_remap)
-    ao0 = jnp.full((B, 1, np_), -1, jnp.int32).at[:, 0, :n].set(ao_remap)
-    scal0 = jnp.zeros((B, 1, 8), jnp.int32).at[:, 0, 0].set(
-        arrs["q"].astype(jnp.int32))
-
-    P = pack
-    BP = B // P
-
-    def spec(*shape):
-        return pl.BlockSpec(
-            (1,) + shape,
-            lambda i, _k=len(shape): (i,) + (jnp.zeros((), jnp.int32),) * _k,
-            memory_space=pltpu.VMEM,
-        )
-
-    def fold_m(A):
-        return A.reshape(BP, P, A.shape[1], A.shape[2])
-
-    def fold_r(A):
-        return A.reshape(BP, P, A.shape[2])
-
-    kern = functools.partial(
-        _kernel_packed_warm, n=n, m=m, np_=np_, mp_=mp_, mtp_=mtp_,
-        max_iter=max_iter, P=P,
+    ao = ao[:, :n]
+    ao_back = jnp.where(ao >= mp_, ao - mp_ + m, ao)
+    sc_raw = scal[:, 4]
+    return FastState(
+        x=x[:, :n],
+        f=jnp.zeros((B,), f32),
+        H=H[:, :n, :n],
+        Ns=jnp.swapaxes(NsT, 1, 2)[:, :n, :n],
+        status=jnp.concatenate([stc[:, :m], stb[:, :n]], axis=1),
+        aorder=jnp.where(ao < 0, -1, ao_back),
+        u=jnp.concatenate([uvec[:, :n], jnp.zeros((B, 1), f32)], axis=1),
+        q=scal[:, 0],
+        it=scal[:, 1],
+        term=scal[:, 2],
+        skip1=scal[:, 3].astype(bool),
+        sc_idx=jnp.where(sc_raw >= mp_, sc_raw - mp_ + m, sc_raw),
+        sc_status=scal[:, 5],
+        hscale=st.hscale.astype(f32),
     )
-    x, uvec, status_o, aorder_o, scal, K, fs = pl.pallas_call(
-        kern,
-        grid=(BP,),
-        in_specs=[
-            spec(P, np_, np_), spec(P, np_, mp_), spec(P, mp_),
-            spec(P, mp_), spec(P, np_), spec(P, np_), spec(P, np_),
-            spec(P, np_, 2 * np_), spec(P, mtp_), spec(P, np_),
-            spec(P, np_), spec(P, np_), spec(P, 8),
-        ],
-        out_specs=[
-            spec(P, np_), spec(P, np_), spec(P, mtp_), spec(P, np_),
-            spec(P, 8), spec(P, np_, 2 * np_), spec(P, 8),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((BP, P, np_), f32),
-            jax.ShapeDtypeStruct((BP, P, np_), f32),
-            jax.ShapeDtypeStruct((BP, P, mtp_), jnp.int32),
-            jax.ShapeDtypeStruct((BP, P, np_), jnp.int32),
-            jax.ShapeDtypeStruct((BP, P, 8), jnp.int32),
-            jax.ShapeDtypeStruct((BP, P, np_, 2 * np_), f32),
-            jax.ShapeDtypeStruct((BP, P, 8), f32),
-        ],
-        interpret=interpret,
-    )(fold_m(G), fold_m(C), fold_r(l), fold_r(u), fold_r(xl), fold_r(xu),
-      fold_r(a_row), fold_m(K0), fold_r(st0), fold_r(ao0), fold_r(sk0),
-      fold_r(b0), fold_r(scal0))
-    x = x.reshape(B, 1, np_)[:B0]
-    uvec = uvec.reshape(B, 1, np_)[:B0]
-    status_o = status_o.reshape(B, 1, mtp_)[:B0]
-    aorder_o = aorder_o.reshape(B, 1, np_)[:B0]
-    scal = scal.reshape(B, 1, 8)[:B0]
-    K = K.reshape(B, np_, 2 * np_)[:B0]
-    fs = fs.reshape(B, 1, 8)[:B0]
-    return _postprocess(x, uvec, status_o, aorder_o, scal, K, fs, None,
-                        n, m, np_, mp_)

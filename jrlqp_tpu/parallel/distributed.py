@@ -1,17 +1,17 @@
 """Multi-host initialization and cross-host meshes.
 
 The reference has no distributed runtime (single-process CPU library); this
-module is the TPU-native scaling layer mandated by the project north star
+module is the multi-host scaling layer mandated by the project north star
 (SURVEY.md section 2 parallelism accounting, BASELINE.md scaling row):
-batches of independent QPs sharded over all chips of a multi-host slice,
+batches of independent QPs sharded over all devices of a multi-host job,
 with collectives only for convergence accounting.
 
-Usage on each host of a slice (or under `jax.distributed` auto-detection on
-TPU pods)::
+Usage on each host (pass the coordinator address, process count and process
+id where the cluster does not provide them)::
 
     from jrlqp_tpu.parallel import distributed
     distributed.initialize()              # no-op on single process
-    mesh = distributed.global_mesh()      # 1-D "batch" mesh over all chips
+    mesh = distributed.global_mesh()      # 1-D "batch" mesh over all devices
     res, stats = solve_sharded(pbs, opt, mesh=mesh)
 
 Data layout guidance: shard the leading batch axis; each chip solves its
@@ -34,9 +34,10 @@ def initialize(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Initialize jax.distributed if running multi-process. On TPU pods all
-    arguments are auto-detected; single-process callers can skip entirely
-    (calling this is then a no-op)."""
+    """Initialize jax.distributed if running multi-process. Where the
+    cluster does not announce itself, pass ``coordinator_address``
+    (``host:port``), ``num_processes`` and ``process_id``; single-process
+    callers can skip entirely (calling this is then a no-op)."""
     if num_processes is not None and num_processes <= 1:
         return
     try:

@@ -2,12 +2,11 @@
 
 The reference is a single-process CPU library with no distributed runtime
 (SURVEY.md section 2, parallelism accounting); its benchmark harness solves
-arrays of problems sequentially (ref: benchmarks/Solvers.cpp:154-299). The
-TPU-native equivalent is: thousands of independent QPs vmapped per chip and
-the batch dimension sharded over a ``jax.sharding.Mesh`` with ``shard_map``.
-The GI algorithm needs no cross-problem communication; collectives (psum /
-pmax) appear only for convergence accounting and benchmark reductions, so
-all communication rides ICI/DCN outside the hot loop.
+arrays of problems sequentially (ref: benchmarks/Solvers.cpp:154-299). Here
+thousands of independent QPs are batched per device and the batch dimension
+is sharded over a flat 1-D ``jax.sharding.Mesh`` with ``shard_map``. The GI
+algorithm needs no cross-problem communication; collectives (psum / pmax)
+appear only for convergence accounting, outside the hot loop.
 """
 from __future__ import annotations
 
@@ -28,19 +27,14 @@ __all__ = ["make_mesh", "shard_batch", "solve_sharded", "BatchStats"]
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "batch") -> Mesh:
-    """1-D mesh over the first ``n_devices`` devices (default: all).
-
-    If the default backend has fewer than ``n_devices`` devices, falls back
-    to the CPU backend (virtual host devices via
-    --xla_force_host_platform_device_count) so multi-chip sharding can be
-    validated on a single-chip or CPU-only host."""
+    """1-D mesh over the first ``n_devices`` devices of the default backend
+    (default: all). Raises ``ValueError`` if it has fewer."""
     devs = jax.devices()
     if n_devices is not None:
         if len(devs) < n_devices:
-            devs = jax.devices("cpu")
-        assert len(devs) >= n_devices, (
-            f"need {n_devices} devices, have {len(devs)}"
-        )
+            raise ValueError(
+                f"need {n_devices} devices, the default backend "
+                f"({jax.default_backend()}) has {len(devs)}")
         devs = devs[:n_devices]
     return jax.make_mesh((len(devs),), (axis,), devices=devs)
 
@@ -65,14 +59,10 @@ class BatchStats:
 
 @functools.lru_cache(maxsize=64)
 def _shard_solve_fn(mesh: Mesh, axis: str, engine: str, opt: SolverOptions,
-                    on_tpu: bool, fused_init: bool):
+                    interpret: bool):
     """Build-and-cache the jitted shard_map'd solve for a given
-    (mesh, engine, options) configuration.
-
-    Caching here is load-bearing for performance: a fresh ``jax.jit`` of a
-    fresh closure per call would re-trace (and with a cold persistent cache
-    re-lower) the entire kernel on EVERY solve -- measured as a ~5x
-    single-chip overhead vs the bare engine in round 4's scaling capture.
+    (mesh, engine, options) configuration: a fresh ``jax.jit`` of a fresh
+    closure per call would re-trace the whole solve on every call.
     """
     # check_vma=False: the GI while_loop mixes device-varying problem data
     # with replicated constants (identity J/R seeds) in its carry; the solve
@@ -88,8 +78,8 @@ def _shard_solve_fn(mesh: Mesh, axis: str, engine: str, opt: SolverOptions,
         if engine == "pallas":
             from ..solver.fast import solve_refined_pallas
 
-            res: GIResult = solve_refined_pallas(
-                local, opt, interpret=not on_tpu, fused_init=fused_init)
+            res: GIResult = solve_refined_pallas(local, opt,
+                                                 interpret=interpret)
         elif engine == "refined":
             from ..solver.fast import solve_refined
 
@@ -114,29 +104,23 @@ def solve_sharded(
     mesh: Optional[Mesh] = None,
     axis: str = "batch",
     engine: str = "f64",
-    fused_init: bool = False,
+    interpret: bool = False,
 ):
     """Solve a stacked batch of QPs sharded over a device mesh.
 
     Each device runs the chosen engine over its local shard ("f64" =
     reference-faithful J/R loop; "refined" = f32 explicit-operator loop +
-    f64-residual refinement; "pallas" = the whole-solve kernel, falling back
-    to interpret mode on non-TPU meshes so sharding can be validated on
-    virtual CPU devices); a single psum/pmax pass at the end produces global
-    convergence statistics. Returns (GIResult batch sharded like the input,
-    BatchStats).
-
-    ``fused_init`` (pallas engine only) moves the cold init into the kernel
-    prologue -- same contract as
-    :func:`jrlqp_tpu.solver.fast.solve_refined_pallas`.
+    f64-residual refinement; "pallas" = the whole-solve loop kernel, with the
+    engine choice of :func:`jrlqp_tpu.solver.fast.solve_refined_pallas`:
+    GPU only unless ``interpret=True``); a single psum/pmax pass at the end
+    produces global convergence statistics. Returns (GIResult batch sharded
+    like the input, BatchStats).
 
     The compiled executable is cached per (mesh, axis, engine, options), so
-    repeated calls on the same configuration pay zero re-trace cost --
-    matching the bare engine's throughput on a 1-device mesh.
+    repeated calls on the same configuration pay no re-trace cost.
     """
     if mesh is None:
         mesh = make_mesh(axis=axis)
-    on_tpu = mesh.devices.ravel()[0].platform == "tpu"
-    fn = _shard_solve_fn(mesh, axis, engine, opt, on_tpu, fused_init)
+    fn = _shard_solve_fn(mesh, axis, engine, opt, interpret)
     pbs = shard_batch(pbs, mesh, axis)
     return fn(pbs)

@@ -1,6 +1,6 @@
 """Problem containers as JAX pytrees.
 
-TPU-native analog of the reference problem structs
+JAX analog of the reference problem structs
 (ref: include/jrl-qp/test/problems.h:16-146). Everything is a registered
 pytree of fixed-shape arrays so problems batch with ``vmap`` and shard with
 ``pjit``. Convention differences vs the reference C++ API:
@@ -8,7 +8,7 @@ pytree of fixed-shape arrays so problems batch with ``vmap`` and shard with
 - ``C`` has shape ``(m, n)`` with one constraint per ROW (the reference's
   ``solve`` takes the transposed ``n x m`` layout; its own test structs use
   rows, problems.h `transposedMat`). Row-major constraints keep the
-  selection pass ``C @ x`` a single MXU-friendly gemv.
+  selection pass ``C @ x`` a single gemv.
 - Bounds are always present; "no bound" is encoded as +/-inf. Padded
   constraints use l=-inf, u=+inf and a zero row so they can never be
   selected; padded variables use an identity diagonal in G and infinite

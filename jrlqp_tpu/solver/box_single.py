@@ -1,9 +1,9 @@
 """Specialized solver: min 0.5 |x - x0|^2  s.t.  c^T x >= bl, xl <= x <= xu.
 
-TPU-native re-design of the reference BoxAndSingleConstraintSolver
+Fixed-shape re-design of the reference BoxAndSingleConstraintSolver
 (ref: src/experimental/BoxAndSingleConstraintSolver.cpp:7-95). The
 reference seeds the generic GI machinery with a closed-form clamp init and
-lets the active-set loop handle the single general constraint; on TPU that
+lets the active-set loop handle the single general constraint; batched, that
 loop is the entire cost (a data-dependent while_loop of O(n^2) steps for a
 problem whose true work is O(n log n)). This module instead solves the QP
 EXACTLY in closed form: with multiplier lam >= 0 on c'x >= bl, KKT

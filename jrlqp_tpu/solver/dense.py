@@ -1,4 +1,4 @@
-"""Dense Goldfarb-Idnani dual active-set solver, TPU-native.
+"""Dense Goldfarb-Idnani dual active-set solver, fixed-shape and batched.
 
 Functional re-design of the reference's template-method loop
 (ref: src/DualSolver.cpp:91-168) and its dense hooks
@@ -434,7 +434,7 @@ def solve(pb: QPProblem, opt: SolverOptions = SolverOptions()) -> GIResult:
     Equivalent to jrl::qp::GoldfarbIdnaniSolver::solve
     (ref: src/GoldfarbIdnaniSolver.cpp:18-54); unlike the reference, G is
     not destroyed (functional style). Jitted by default (one compilation
-    per padded shape -- the TPU analog of the reference's malloc-free
+    per padded shape -- the analog of the reference's malloc-free
     resize-once-solve-many contract); composes with jit/vmap/shard_map.
     """
     return _solve_impl(pb, opt)

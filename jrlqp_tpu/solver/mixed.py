@@ -1,10 +1,10 @@
 """Mixed-precision solve: f32 active-set identification + f64 refinement.
 
-This path has no reference counterpart -- it is the TPU-native answer to the
-hardware's precision profile. The reference runs everything in double on
-CPU; TPU MXU/VPU are fast in float32 and emulate float64 in software, so a
-straight f64 port leaves most of the machine idle. The GI dual active-set
-method splits naturally:
+This path has no reference counterpart -- it answers the accelerator's
+precision profile. The reference runs everything in double on CPU;
+accelerators are several times faster in float32 than in float64, so a
+straight f64 port spends most of its time where a few digits would do. The
+GI dual active-set method splits naturally:
 
 1. *Identify* the optimal active set with the whole GI iteration in
    float32 -- combinatorial decisions (which constraint is most violated,

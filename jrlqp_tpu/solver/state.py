@@ -2,7 +2,7 @@
 
 The reference keeps solver state in mutable member workspaces
 (ref: include/jrl-qp/DualSolver.h:123-142, internal/ActiveSet.h:150-168).
-The TPU build replaces them with one immutable fixed-shape pytree per
+This build replaces them with one immutable fixed-shape pytree per
 problem; a batch is the vmapped stack of these.
 
 Active-set representation (ref: internal/ActiveSet.h dual view):

@@ -1,6 +1,6 @@
 """Warm-started Goldfarb-Idnani solve.
 
-TPU-native re-design of the reference's experimental warm-start solver
+Fixed-shape re-design of the reference's experimental warm-start solver
 (ref: src/experimental/GoldfarbIdnaniSolver.cpp:66-488): an activation-status
 vector (the previous solve's active set) seeds the initial active set; the
 factorizations (J, R) are rebuilt with one batched QR; the primal/dual point

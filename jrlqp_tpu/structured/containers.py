@@ -1,6 +1,6 @@
 """Structured matrix containers: StructuredG and StructuredC analogs.
 
-TPU-native re-design of the reference containers
+Fixed-shape re-design of the reference containers
 (ref: include/jrl-qp/structured/StructuredG.h:14-76,
 include/jrl-qp/structured/StructuredC.h:15-54). Uniform padded block sizes
 replace the reference's ragged ``std::vector<MatrixRef>`` views so

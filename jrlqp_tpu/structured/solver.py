@@ -1,11 +1,11 @@
 """GI solver over structured G (BlockGISolver analog).
 
-TPU-native take on the reference's experimental::BlockGISolver
+A fixed-shape take on the reference's experimental::BlockGISolver
 (ref: src/experimental/BlockGISolver.cpp:10-486). Design note: the reference
 keeps Q implicit as an OrthonormalSequence whose apply cost grows with the
 add/remove history (SURVEY.md section 3.3); that design is shape-dynamic and
 maps poorly to XLA. Following SURVEY.md section 7 / M4 we instead exploit the
-structure where it pays on TPU -- the O(nb * s^3) blocked factorization and
+structure where it pays -- the O(nb * s^3) blocked factorization and
 the O(n^2 s) computation of J0 = L^{-T} (vs O(n^3) dense) -- and then run
 the same fixed-shape dense-J GI iteration as the dense solver. Results are
 differential-tested against the dense solver at 1e-8, mirroring the
@@ -30,11 +30,11 @@ from ..types import (
     OVERCONSTRAINED_PROBLEM,
     SolverOptions,
 )
-from .containers import GType, StructuredC, StructuredG
+from .containers import StructuredC, StructuredG
 
 __all__ = ["solve_structured", "solve_structured_fast",
            "solve_structured_fast_batch", "solve_structured_fast_carry",
-           "structured_qp_problem"]
+           "structured_inverse_batch", "structured_qp_problem"]
 
 
 def structured_qp_problem(
@@ -60,7 +60,7 @@ def structured_qp_problem(
 def structured_hooks(sc: StructuredC):
     """Block-sparsity-exploiting selection/step hooks for the GI loop.
 
-    TPU analog of the reference's per-iteration structure exploitation
+    Fixed-shape analog of the reference's per-iteration structure exploitation
     (ref: src/experimental/BlockGISolver.cpp:117-118 block-wise C^T x in the
     selection, src/structured/StructuredJ.cpp:43-57 zero-skipping d = J^T n+
     via SingleNZSegmentVector): the selected constraint's normal is nonzero
@@ -207,56 +207,32 @@ def solve_structured(
     return finalize(pb, state)
 
 
-def _structured_inverse_pallas_batch(diag, off, gtype, interpret: bool,
-                                     pack=None):
-    """Batched H = G^{-1} (B, n, n) and posdef flags (B,) via the fused
-    (and problem-packed) Pallas block-LLT kernels (ops/pallas/block_llt.py;
-    ref [OPTIM] anchors: src/decomposition/blockArrowLLT.cpp:118-120,217).
-    One kernel launch factors every problem's whole chain with per-block
-    inverses, a second runs the forward+backward multi-rhs solve on the
-    identity -- every downstream use of the factor is then a plain gemm
-    against H."""
-    from ..ops.pallas.block_llt import (
-        block_arrow_llt_pallas,
-        block_arrow_solve_pallas,
-        tri_block_llt_pallas,
-        tri_block_solve_pallas,
-    )
+def _structured_inverse(sg32: StructuredG):
+    """H = G^{-1} (n, n) and the posdef flag from the blocked LLT
+    (O(nb s^3) factor + O(n^2 s) J0 = L^{-T}); identity where G is not
+    positive definite."""
+    n = sg32.nb * sg32.s
+    fac = sg32.llt()
+    posdef = jnp.all(jnp.isfinite(fac.diag))
+    J0 = jnp.where(posdef, fac.inverse_transpose(),
+                   jnp.eye(n, dtype=sg32.diag.dtype))
+    return J0 @ J0.T, posdef
 
-    f32 = jnp.float32
+
+def structured_inverse_batch(diag, off, gtype):
+    """Batched :func:`_structured_inverse`: ``diag`` (B, nb, s, s), ``off``
+    the matching off-diagonal blocks (or None). Returns (H (B, n, n),
+    posdef (B,))."""
+    import dataclasses as _dc
+
     B, nb, s, _ = diag.shape
-    n = nb * s
-    eye_b = jnp.broadcast_to(
-        jnp.eye(n, dtype=f32).reshape(1, nb, s, n), (B, nb, s, n))
-    if gtype == GType.TRI_BLOCK_DIAGONAL:
-        Ld, Lo, Li = tri_block_llt_pallas(diag, off, interpret=interpret,
-                                          pack=pack)
-        H = tri_block_solve_pallas(Lo, Li, eye_b, interpret=interpret,
-                                   pack=pack)
-    else:
-        up = gtype == GType.BLOCK_ARROW_UP
-        Ld, Lo, Li = block_arrow_llt_pallas(diag, off, up=up,
-                                            interpret=interpret, pack=pack)
-        H = block_arrow_solve_pallas(Lo, Li, eye_b, up=up,
-                                     interpret=interpret, pack=pack)
-    H = H.reshape(B, n, n)
-    # The in-kernel Cholesky clamps pivots at 1e-30 instead of producing
-    # NaN, so a non-SPD (or f32-unfactorable) chain shows up as a collapsed
-    # factor diagonal: flag when min(diag L) < 1e-6 * max(diag L).
-    d = jnp.diagonal(Ld, axis1=-2, axis2=-1).reshape(B, nb * s)
-    posdef = jnp.min(d, axis=1) > 1e-6 * jnp.max(d, axis=1)
-    return H, posdef
+    proto = StructuredG(diag=diag[0], off=None if off is None else off[0],
+                        gtype=gtype)
+    return jax.vmap(lambda d, o: _structured_inverse(
+        _dc.replace(proto, diag=d, off=o)))(diag, off)
 
 
-def _structured_inverse_pallas(sg32: StructuredG, interpret: bool):
-    """Single-problem wrapper over :func:`_structured_inverse_pallas_batch`."""
-    H, posdef = _structured_inverse_pallas_batch(
-        sg32.diag[None], sg32.off[None], sg32.gtype, interpret)
-    return H[0], posdef[0]
-
-
-@functools.partial(jax.jit, static_argnames=("opt", "ir_steps", "backend",
-                                             "interpret"))
+@functools.partial(jax.jit, static_argnames=("opt", "ir_steps"))
 def solve_structured_fast(
     sg: StructuredG,
     a: jax.Array,
@@ -267,34 +243,17 @@ def solve_structured_fast(
     xu: Optional[jax.Array] = None,
     opt: SolverOptions = SolverOptions(),
     ir_steps: int = 3,
-    backend: str = "auto",
-    interpret: bool = False,
 ) -> GIResult:
     """Structured problem through the explicit-operator throughput engine.
 
-    The blocked LLT replaces the dense O(n^3) Cholesky in the f32 init:
-    ``backend="pallas"`` (the default on TPU via "auto") runs the whole
-    factorization chain + identity solve as two fused Pallas kernel
-    launches (see :mod:`jrlqp_tpu.ops.pallas.block_llt`); ``backend="xla"``
-    composes the same math from per-block XLA ops. The active-set loop and
-    the f64-residual refinement are the dense fast engine. vmap-compatible;
-    differential-tested against :func:`solve_structured`.
+    The blocked LLT (:mod:`jrlqp_tpu.structured.blocks`, XLA scans)
+    replaces the dense O(n^3) Cholesky in the f32 init; the active-set loop
+    and the f64-residual refinement are the dense fast engine.
+    vmap-compatible; differential-tested against :func:`solve_structured`.
     """
     import dataclasses as _dc
 
-    from ..solver.fast import (
-        FastState,
-        _init_fast_from_ops,
-        _refine,
-        fast_iteration,
-    )
-
-    if backend == "auto":
-        # respect an explicitly pinned default device (e.g. tests pin CPU
-        # while the TPU plugin is still the highest-priority backend)
-        dflt = jax.config.jax_default_device
-        platform = dflt.platform if dflt is not None else jax.default_backend()
-        backend = "pallas" if platform == "tpu" else "xla"
+    from ..solver.fast import _init_fast_from_ops, _loop_xla, _opt32, _refine
 
     pb = structured_qp_problem(sg, a, sc, l, u, xl, xu)
     f32 = jnp.float32
@@ -302,36 +261,27 @@ def solve_structured_fast(
     sg32 = _dc.replace(
         sg, diag=sg.diag.astype(f32),
         off=None if sg.off is None else sg.off.astype(f32))
-    opt32 = opt.with_(dtype=f32, zero_z_threshold=1e-6)
-
-    n = pb.n
-    if backend == "pallas":
-        H, posdef = _structured_inverse_pallas(sg32, interpret)
-        H = jnp.where(posdef, H, jnp.eye(n, dtype=f32))
-    else:
-        fac = sg32.llt()
-        posdef = jnp.all(jnp.isfinite(fac.diag))
-        J0 = fac.inverse_transpose()                 # L^-T, O(n^2 s)
-        J0 = jnp.where(posdef, J0, jnp.eye(n, dtype=f32))
-        H = J0 @ J0.T                                # G^-1
-    x = -(H @ pb32.a)
-    x = jnp.where(posdef, x, jnp.zeros_like(x))
+    opt32 = _opt32(opt)
+    H, posdef = _structured_inverse(sg32)
+    x = jnp.where(posdef, -(H @ pb32.a), 0.0)
     state = _init_fast_from_ops(pb32, H, x, posdef, opt32)
-
-    max_iter = jnp.asarray(opt.max_iter, jnp.int32)
-    state = jax.lax.while_loop(
-        lambda st: (st.term == RUNNING) & (st.it < max_iter),
-        lambda st: fast_iteration(pb32, st, opt32),
-        state,
-    )
-    from ..types import MAX_ITER_REACHED
-    term = jnp.where(state.term == RUNNING, MAX_ITER_REACHED, state.term)
-    state = _dc.replace(state, term=term.astype(jnp.int32))
-    return _refine(pb, state, ir_steps)
+    return _refine(pb, _loop_xla(pb32, state, opt32), ir_steps)
 
 
-@functools.partial(jax.jit, static_argnames=("opt", "ir_steps", "backend",
-                                             "interpret", "pack"))
+def _batch_problems(sgs, a, scs, l, u, xl, xu):
+    B = a.shape[0]
+    n = sgs.nb * sgs.s
+    inf = jnp.asarray(jnp.inf, a.dtype)
+    if xl is None:
+        xl = jnp.full((B, n), -inf, a.dtype)
+    if xu is None:
+        xu = jnp.full((B, n), inf, a.dtype)
+    return jax.vmap(
+        lambda sg, av, sc, lv, uv, xlv, xuv: structured_qp_problem(
+            sg, av, sc, lv, uv, xlv, xuv))(sgs, a, scs, l, u, xl, xu)
+
+
+@functools.partial(jax.jit, static_argnames=("opt", "ir_steps"))
 def solve_structured_fast_batch(
     sgs: StructuredG,
     a: jax.Array,
@@ -342,31 +292,25 @@ def solve_structured_fast_batch(
     xu: Optional[jax.Array] = None,
     opt: SolverOptions = SolverOptions(),
     ir_steps: int = 3,
-    backend: str = "auto",
-    interpret: bool = False,
-    pack: Optional[int] = None,
 ) -> GIResult:
     """Batched structured solve: every array is batch-leading (``sgs.diag``
     is (B, nb, s, s), ``a`` is (B, n), ...).
 
-    This is the throughput form of :func:`solve_structured_fast`: the f32
-    init runs the problem-packed fused Pallas block-LLT + identity-solve
-    kernels ONCE for the whole batch (O(nb s^3) per problem vs the dense
-    engine's O(n^3) Cholesky + O(n^3) inverse assembly -- the reason the
-    reference's structured layer exists, tests/BlockGISolverTest.in.cpp:
-    251-268), the active-set loop is the vmapped explicit-operator
-    iteration, and finalization is the batched f64-residual refinement.
-    Semantics match ``vmap(solve_structured_fast)``.
+    The throughput form of :func:`solve_structured_fast`: the f32 init is
+    the batched blocked LLT (O(nb s^3) per problem vs the dense engine's
+    O(n^3) Cholesky + O(n^3) inverse assembly -- the reason the reference's
+    structured layer exists, tests/BlockGISolverTest.in.cpp:251-268), the
+    active-set loop is the vmapped explicit-operator iteration, and
+    finalization is the batched f64-residual refinement. Semantics match
+    ``vmap(solve_structured_fast)``.
     """
     from ..solver.fast import _refine_batch
 
-    pbs, _, _, states = _solve_structured_states(
-        sgs, a, scs, l, u, xl, xu, opt, backend, interpret, pack)
+    pbs, states = _solve_structured_states(sgs, a, scs, l, u, xl, xu, opt)
     return _refine_batch(pbs, states, ir_steps)
 
 
-@functools.partial(jax.jit, static_argnames=("opt", "ir_steps", "backend",
-                                             "interpret", "pack"))
+@functools.partial(jax.jit, static_argnames=("opt", "ir_steps"))
 def solve_structured_fast_carry(
     sgs: StructuredG,
     a: jax.Array,
@@ -378,9 +322,6 @@ def solve_structured_fast_carry(
     xu: Optional[jax.Array] = None,
     opt: SolverOptions = SolverOptions(),
     ir_steps: int = 3,
-    backend: str = "auto",
-    interpret: bool = False,
-    pack: Optional[int] = None,
 ):
     """Batched structured solve for sequential trajectories (IK control
     loops, the structured layer's primary workload -- ref 'Sequential IK',
@@ -393,36 +334,25 @@ def solve_structured_fast_carry(
     drift), the previous solve's reduced operators ARE the warm operators
     (:class:`jrlqp_tpu.solver.fast.WarmCarry`) -- no blocked factorization,
     no identity solve, zero O(n^3)/O(nb s^3) work at solve entry. First
-    call: ``carry=None`` (cold, packed fused block-LLT init).
+    call: ``carry=None`` (cold, blocked-LLT init).
     """
     import dataclasses as _dc
 
     from ..solver.fast import (
         WarmCarry,
         _init_fast_from_carry,
+        _loop_xla,
+        _opt32,
         _refine_batch,
-        fast_iteration,
     )
 
     if carry is None:
-        # cold start: reuse the batch entry's init by inlining its body
-        res_states = _solve_structured_states(
-            sgs, a, scs, l, u, xl, xu, opt, backend, interpret, pack)
-        pbs, pb32, opt32, states = res_states
+        pbs, states = _solve_structured_states(sgs, a, scs, l, u, xl, xu,
+                                               opt)
     else:
-        f32 = jnp.float32
-        B = a.shape[0]
-        n = sgs.nb * sgs.s
-        inf = jnp.asarray(jnp.inf, a.dtype)
-        if xl is None:
-            xl = jnp.full((B, n), -inf, a.dtype)
-        if xu is None:
-            xu = jnp.full((B, n), inf, a.dtype)
-        pbs = jax.vmap(
-            lambda sg, av, sc, lv, uv, xlv, xuv: structured_qp_problem(
-                sg, av, sc, lv, uv, xlv, xuv))(sgs, a, scs, l, u, xl, xu)
-        pb32 = pbs.with_dtype(f32)
-        opt32 = opt.with_(dtype=f32, zero_z_threshold=1e-6)
+        pbs = _batch_problems(sgs, a, scs, l, u, xl, xu)
+        pb32 = pbs.with_dtype(jnp.float32)
+        opt32 = _opt32(opt)
         state0 = jax.vmap(_init_fast_from_carry)(
             pb32, carry.H, carry.Ns, carry.status, carry.aorder, carry.q)
         if opt.validate:
@@ -434,19 +364,7 @@ def solve_structured_fast_carry(
             bad = jax.vmap(inconsistent_mask)(pb32)
             state0 = _dc.replace(state0, term=jnp.where(
                 bad, INCONSISTENT_INPUT, state0.term).astype(jnp.int32))
-        max_iter = jnp.asarray(opt.max_iter, jnp.int32)
-
-        def run(pb_i, st):
-            return jax.lax.while_loop(
-                lambda s: (s.term == RUNNING) & (s.it < max_iter),
-                lambda s: fast_iteration(pb_i, s, opt32),
-                st)
-
-        states = jax.vmap(run)(pb32, state0)
-        from ..types import MAX_ITER_REACHED
-        term = jnp.where(states.term == RUNNING, MAX_ITER_REACHED,
-                         states.term)
-        states = _dc.replace(states, term=term.astype(jnp.int32))
+        states = jax.vmap(lambda p, s: _loop_xla(p, s, opt32))(pb32, state0)
 
     res = _refine_batch(pbs, states, ir_steps)
     new_carry = WarmCarry(H=states.H, Ns=states.Ns, status=states.status,
@@ -454,62 +372,20 @@ def solve_structured_fast_carry(
     return res, new_carry
 
 
-def _solve_structured_states(sgs, a, scs, l, u, xl, xu, opt, backend,
-                             interpret, pack):
-    """Cold-start shared body: returns (pbs, pb32, opt32, final states)."""
-    import dataclasses as _dc
-
-    from ..solver.fast import _init_fast_from_ops, fast_iteration
-
-    if backend == "auto":
-        dflt = jax.config.jax_default_device
-        platform = dflt.platform if dflt is not None else jax.default_backend()
-        backend = "pallas" if platform == "tpu" else "xla"
+def _solve_structured_states(sgs, a, scs, l, u, xl, xu, opt):
+    """Cold-start shared body: returns (pbs, final f32 states)."""
+    from ..solver.fast import _init_fast_from_ops, _loop_xla, _opt32
 
     f32 = jnp.float32
-    B = a.shape[0]
-    n = sgs.nb * sgs.s
-    inf = jnp.asarray(jnp.inf, a.dtype)
-    if xl is None:
-        xl = jnp.full((B, n), -inf, a.dtype)
-    if xu is None:
-        xu = jnp.full((B, n), inf, a.dtype)
-    pbs = jax.vmap(
-        lambda sg, av, sc, lv, uv, xlv, xuv: structured_qp_problem(
-            sg, av, sc, lv, uv, xlv, xuv))(sgs, a, scs, l, u, xl, xu)
+    pbs = _batch_problems(sgs, a, scs, l, u, xl, xu)
     pb32 = pbs.with_dtype(f32)
-    opt32 = opt.with_(dtype=f32, zero_z_threshold=1e-6)
+    opt32 = _opt32(opt)
+    H, posdef = structured_inverse_batch(
+        sgs.diag.astype(f32), None if sgs.off is None else sgs.off.astype(f32),
+        sgs.gtype)
+    x = jnp.where(posdef[:, None], -jnp.einsum("bij,bj->bi", H, pb32.a), 0.0)
 
-    diag32 = sgs.diag.astype(f32)
-    off32 = None if sgs.off is None else sgs.off.astype(f32)
-    if backend == "pallas":
-        H, posdef = _structured_inverse_pallas_batch(
-            diag32, off32, sgs.gtype, interpret, pack=pack)
-        H = jnp.where(posdef[:, None, None], H, jnp.eye(n, dtype=f32)[None])
-    else:
-        def one_inv(d, o):
-            fac = _dc.replace(sgs, diag=d, off=o).llt()
-            pd = jnp.all(jnp.isfinite(fac.diag))
-            J0 = fac.inverse_transpose()
-            J0 = jnp.where(pd, J0, jnp.eye(n, dtype=f32))
-            return J0 @ J0.T, pd
+    def run(p, Hi, xi, pd):
+        return _loop_xla(p, _init_fast_from_ops(p, Hi, xi, pd, opt32), opt32)
 
-        H, posdef = jax.vmap(one_inv)(diag32, off32)
-    x = -jnp.einsum("bij,bj->bi", H, pb32.a)
-    x = jnp.where(posdef[:, None], x, 0.0)
-    state0 = jax.vmap(
-        lambda p, Hi, xi, pd: _init_fast_from_ops(p, Hi, xi, pd, opt32))(
-        pb32, H, x, posdef)
-    max_iter = jnp.asarray(opt.max_iter, jnp.int32)
-
-    def run(pb_i, st):
-        return jax.lax.while_loop(
-            lambda s: (s.term == RUNNING) & (s.it < max_iter),
-            lambda s: fast_iteration(pb_i, s, opt32),
-            st)
-
-    states = jax.vmap(run)(pb32, state0)
-    from ..types import MAX_ITER_REACHED
-    term = jnp.where(states.term == RUNNING, MAX_ITER_REACHED, states.term)
-    states = _dc.replace(states, term=term.astype(jnp.int32))
-    return pbs, pb32, opt32, states
+    return pbs, jax.vmap(run)(pb32, H, x, posdef)

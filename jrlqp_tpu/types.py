@@ -1,6 +1,6 @@
 """Foundation types: activation/termination enums and solver options.
 
-TPU-native re-design of the reference foundation layer
+Fixed-shape re-design of the reference foundation layer
 (ref: include/jrl-qp/enums.h:14-52, include/jrl-qp/SolverOptions.h:14-88).
 Enums are plain ``IntEnum`` so their values can live inside JAX int32 arrays;
 the *ordering is semantic* exactly as in the reference (enums.h:11-13):
@@ -46,7 +46,7 @@ class ActivationStatus(enum.IntEnum):
 class TerminationStatus(enum.IntEnum):
     """Solver termination reason (ref: enums.h:26-37).
 
-    RUNNING is an addition of the TPU build: per-lane status while the
+    RUNNING is an addition of this build: per-lane status while the
     batched ``lax.while_loop`` is still iterating.
     """
 

@@ -1,9 +1,9 @@
-"""No-recompilation guard -- the TPU analog of the reference's allocation
+"""No-recompilation guard -- the analog of the reference's allocation
 sanitizer.
 
 The reference proves solve() is malloc-free by failing on any Eigen heap
 allocation inside a guarded region (ref: src/internal/memoryChecks.cpp:5-24,
-used at tests/GoldfarbIdnaniSolverTest.cpp:114-116). On TPU the equivalent
+used at tests/GoldfarbIdnaniSolverTest.cpp:114-116). Under XLA the equivalent
 performance contract is *no retracing / no recompilation*: once a padded
 shape is compiled, solving any number of problems of that shape must reuse
 the executable. This guard asserts exactly that.

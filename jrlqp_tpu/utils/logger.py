@@ -1,6 +1,6 @@
 """Iteration tracing / observability.
 
-TPU-native stand-in for the reference's Matlab-emitting Logger
+JAX stand-in for the reference's Matlab-emitting Logger
 (ref: include/jrl-qp/utils/Logger.h:18-166, utils/debug.h:60-86,
 enums.h LogFlags). Host-side streaming from inside a jitted while-loop is
 impossible, so traces are *returned as arrays*: preallocated
@@ -186,34 +186,31 @@ def capture_pallas_trajectory(
     pb: QPProblem,
     opt: SolverOptions = SolverOptions(),
     n_iters: int = 16,
-    interpret: bool = True,
-    pack: int = 1,
+    interpret: bool = False,
 ):
-    """Per-iteration state capture for the whole-solve Pallas kernel.
+    """Per-iteration state capture for the whole-solve loop kernel.
 
-    The kernel runs its while-loop entirely in VMEM, so intermediate
+    The kernel runs its while-loop inside one launch, so intermediate
     states are not observable from a single launch. This debug helper
     re-runs the kernel with the iteration cap set to 1..n_iters from the
-    same init (interpret mode by default) and stacks the reached states —
-    O(n_iters^2) kernel work, intended for inspecting XLA-vs-Pallas
+    same init and stacks the reached states (``interpret=True`` runs the
+    kernel in the Pallas interpreter, as it must off the GPU) —
+    O(n_iters^2) kernel work, intended for inspecting XLA-vs-kernel
     divergence on one problem, not for production. Returns a dict of
     (n_iters, ...) arrays: x, u, q, it, term.
     """
-    import dataclasses as _dc
-
     from ..ops.pallas.gi_kernel import run_loop_pallas
-    from ..solver.fast import _init_fast
+    from ..solver.fast import _init_fast, _opt32
 
     pb32 = jax.tree.map(
         lambda a: a[None], pb.with_dtype(jnp.float32))  # batch of 1
-    opt32 = opt.with_(dtype=jnp.float32, zero_z_threshold=1e-6)
+    opt32 = _opt32(opt)
     state0 = jax.vmap(lambda p: _init_fast(p, opt32))(pb32)
     rows = {k: [] for k in ("x", "u", "q", "it", "term")}
     for cap in range(1, n_iters + 1):
-        out = run_loop_pallas(pb32, state0, cap, interpret=interpret,
-                              pack=pack)
+        out = run_loop_pallas(pb32, state0, cap, interpret=interpret)
         for k in rows:
-            rows[k].append(np.asarray(out[k][0]))
+            rows[k].append(np.asarray(getattr(out, k)[0]))
     return {k: np.stack(v) for k, v in rows.items()}
 
 

@@ -4,7 +4,7 @@ The real Maros-Meszaros QPS files are not redistributable here, so the
 corpus pipeline is exercised on synthesized QPS files: random problems with
 KNOWN optimal objectives (generator ground truth) are serialized with
 ``write_qps``, read back through the QPS readers, bucketed by padded shape,
-and solved as batches -- the exact execution model of a TPU corpus run
+and solved as batches -- the execution model of an accelerator corpus run
 (BASELINE config 3: padded/bucketed shapes). Acceptance matches the
 reference: objective within 1e-6 relative of f*, KKT at 1e-6
 (ref: GoldfarbIdnaniSolverTest.cpp:304-306).
@@ -149,13 +149,14 @@ def _vendored_entries(names):
 def test_vendored_public_problems_match_fstar(engine):
     """The strictly-convex vendored problems must hit the published f*
     from the Maros-Meszaros table at 1e-6 relative through both the
-    reference-faithful f64 engine and the Pallas production configuration
-    (kernel + IR + f64 rescue; interpret off-TPU)
+    reference-faithful f64 engine and the kernel production configuration
+    (kernel + IR + f64 rescue; the Pallas interpreter on CPU)
     (ref acceptance: GoldfarbIdnaniSolverTest.cpp:304-306)."""
     entries = _vendored_entries(VENDORED_STRICT)
     assert len(entries) == len(VENDORED_STRICT)
     results = run_corpus(qps_dir=VENDORED_DIR, entries=entries,
-                         bucketed=True, engine=engine)
+                         bucketed=True, engine=engine,
+                         interpret=engine == "pallas_rescued")
     assert len(results) == len(VENDORED_STRICT)
     for r in results:
         assert r["status"] == "SUCCESS", r
@@ -192,13 +193,15 @@ LARGE_SPECS = [
 
 
 def test_corpus_large_buckets_through_pallas(tmp_path):
-    """Corpus pipeline at larger sizes (n up to 128) through the Pallas
+    """Corpus pipeline at larger sizes (n up to 128) through the kernel
     production configuration (kernel + IR + f64 rescue of lanes whose
-    refined residual misses 1e-8; interpret off-TPU): bucketed batched
-    solves must match f* and pass KKT at 1e-8."""
+    refined residual misses 1e-8; the Pallas interpreter on CPU, the XLA
+    loop above the kernel's size limit): bucketed batched solves must
+    match f* and pass KKT at 1e-8."""
     entries = _make_corpus(tmp_path, LARGE_SPECS, seed=7)
     results = run_corpus(qps_dir=str(tmp_path), entries=entries,
-                         bucketed=True, engine="pallas_rescued")
+                         bucketed=True, engine="pallas_rescued",
+                         interpret=True)
     assert len(results) == len(LARGE_SPECS)
     for r in results:
         assert r["status"] == "SUCCESS", r
@@ -243,3 +246,12 @@ def test_corpus_ill_conditioned_spectrum_f64(tmp_path):
     fstar = float(0.5 * x_star @ (G @ x_star) + a @ x_star)
     np.testing.assert_allclose(float(res.f), fstar, rtol=1e-6)
     assert float(kkt_residual(res.x, res.multipliers, pb)) <= 1e-6
+
+
+def test_corpus_kernel_engine_needs_gpu_or_interpret(tmp_path):
+    """The kernel engines of run_corpus never fall back to the Pallas
+    interpreter: on the CPU they raise unless interpret=True is passed."""
+    entries = _make_corpus(tmp_path, SPECS[:1], seed=4)
+    with pytest.raises(ValueError, match="interpret=True"):
+        run_corpus(qps_dir=str(tmp_path), entries=entries, bucketed=True,
+                   engine="pallas")

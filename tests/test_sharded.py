@@ -1,6 +1,6 @@
 """Mesh-sharded batch solves on the virtual 8-device CPU mesh.
 
-The reference has no distributed runtime; the TPU framework's parallelism
+The reference has no distributed runtime; the framework's parallelism
 contract (SURVEY.md §2 accounting / §7 M6) is: batches shard over a
 ``jax.sharding.Mesh`` with psum/pmax only for convergence accounting, and
 every engine must produce the same per-problem results sharded as unsharded.
@@ -21,7 +21,8 @@ def test_sharded_matches_unsharded(engine):
     mesh = make_mesh(8)
     opt = SolverOptions(max_iter=60)
     pbs = random_qp_batch(jax.random.key(1), 16, 7, 11, act_frac=0.4)
-    res, stats = solve_sharded(pbs, opt, mesh=mesh, engine=engine)
+    res, stats = solve_sharded(pbs, opt, mesh=mesh, engine=engine,
+                               interpret=engine == "pallas")
     ref = solve_batch(pbs, opt)
     np.testing.assert_array_equal(np.asarray(res.status),
                                   np.asarray(ref.status))
@@ -34,3 +35,12 @@ def test_sharded_matches_unsharded(engine):
     assert np.asarray(resid <= 1e-8).all()
     assert int(stats.n_success) == 16
     assert int(stats.max_iterations) == int(jnp.max(ref.iterations))
+
+
+def test_make_mesh_raises_when_devices_are_missing():
+    """make_mesh never falls back to other devices: asking for more
+    devices than the default backend has is an error."""
+    have = len(jax.devices())
+    assert make_mesh(have).devices.size == have
+    with pytest.raises(ValueError, match="need"):
+        make_mesh(have + 1)

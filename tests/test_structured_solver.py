@@ -146,9 +146,8 @@ def test_structured_fast_matches_structured():
     [GType.TRI_BLOCK_DIAGONAL, GType.BLOCK_ARROW_DOWN, GType.BLOCK_ARROW_UP],
 )
 def test_structured_fast_pallas_backend(gtype):
-    """The fused Pallas block-LLT init (backend="pallas", interpret on CPU)
-    must reproduce the XLA-composed structured fast solve and the f64
-    structured solver (ref parallelization targets:
+    """The blocked-LLT init of the structured fast solve must reproduce the
+    f64 structured solver for every G type (ref parallelization targets:
     src/decomposition/blockArrowLLT.cpp:118-120,217)."""
     from jrlqp_tpu.structured.solver import (
         solve_structured,
@@ -158,8 +157,7 @@ def test_structured_fast_pallas_backend(gtype):
     rng = np.random.default_rng(13 + int(gtype))
     sg, a, sc, l, u = _rand_structured(rng, nb=4, s=6, mc=3, gtype=gtype)
     r64 = solve_structured(sg, a, sc, l, u)
-    rp = solve_structured_fast(sg, a, sc, l, u, backend="pallas",
-                               interpret=True)
+    rp = solve_structured_fast(sg, a, sc, l, u)
     assert int(rp.status) == int(r64.status) == 0
     np.testing.assert_allclose(np.asarray(rp.x), np.asarray(r64.x),
                                atol=1e-7)
@@ -168,7 +166,7 @@ def test_structured_fast_pallas_backend(gtype):
 
 
 def test_structured_fast_pallas_vmap():
-    """Batched (vmapped) structured fast solves through the Pallas init."""
+    """Batched (vmapped) structured fast solves through the blocked init."""
     from jrlqp_tpu.structured.solver import (
         solve_structured,
         solve_structured_fast,
@@ -185,8 +183,7 @@ def test_structured_fast_pallas_vmap():
     u_b = jnp.stack([p[4] for p in probs])
 
     res = jax.vmap(
-        lambda sg, a, sc, l, u: solve_structured_fast(
-            sg, a, sc, l, u, backend="pallas", interpret=True)
+        lambda sg, a, sc, l, u: solve_structured_fast(sg, a, sc, l, u)
     )(sgs, a_b, scs, l_b, u_b)
     for k, (sg, a, sc, l, u) in enumerate(probs):
         ref = solve_structured(sg, a, sc, l, u)
@@ -197,8 +194,7 @@ def test_structured_fast_pallas_vmap():
 
 def test_structured_fast_pallas_non_spd_flagged():
     """A non-SPD structured G must terminate NON_POS_HESSIAN through the
-    Pallas init (the kernel clamps pivots instead of NaN-ing; the collapsed
-    factor diagonal is the detection signal)."""
+    blocked init (a failed block Cholesky leaves a non-finite factor)."""
     from jrlqp_tpu.structured.solver import solve_structured_fast
 
     rng = np.random.default_rng(3)
@@ -214,8 +210,7 @@ def test_structured_fast_pallas_non_spd_flagged():
     sc = StructuredC(blocks=jnp.asarray(rng.standard_normal((nb, mc, s))))
     n, m = nb * s, nb * mc
     res = solve_structured_fast(
-        sg, jnp.zeros(n), sc, jnp.full(m, -1.0), jnp.full(m, 1.0),
-        backend="pallas", interpret=True)
+        sg, jnp.zeros(n), sc, jnp.full(m, -1.0), jnp.full(m, 1.0))
     assert int(res.status) == int(TerminationStatus.NON_POS_HESSIAN)
 
 
@@ -223,9 +218,8 @@ def test_structured_fast_pallas_non_spd_flagged():
                                    GType.BLOCK_ARROW_DOWN])
 def test_structured_fast_batch_matches_vmapped(gtype):
     """solve_structured_fast_batch == vmap(solve_structured_fast): the
-    packed batched init (one fused kernel launch for the whole batch) must
-    reproduce the per-problem path, and agree with the f64 structured
-    oracle."""
+    batched blocked init must reproduce the per-problem path, and agree
+    with the f64 structured oracle."""
     from jrlqp_tpu.structured.solver import (
         solve_structured_fast,
         solve_structured_fast_batch,
@@ -240,12 +234,9 @@ def test_structured_fast_batch_matches_vmapped(gtype):
     l_b = jnp.stack([p[3] for p in probs])
     u_b = jnp.stack([p[4] for p in probs])
 
-    res_b = solve_structured_fast_batch(sgs, a_b, scs, l_b, u_b,
-                                        backend="pallas", interpret=True,
-                                        pack=2)
+    res_b = solve_structured_fast_batch(sgs, a_b, scs, l_b, u_b)
     res_1 = jax.vmap(
-        lambda sg, a, sc, l, u: solve_structured_fast(
-            sg, a, sc, l, u, backend="pallas", interpret=True)
+        lambda sg, a, sc, l, u: solve_structured_fast(sg, a, sc, l, u)
     )(sgs, a_b, scs, l_b, u_b)
     assert np.array_equal(np.asarray(res_b.status), np.asarray(res_1.status))
     np.testing.assert_allclose(np.asarray(res_b.x), np.asarray(res_1.x),
@@ -285,11 +276,49 @@ def test_structured_fast_carry_trajectory():
         d = jnp.asarray(0.02 * rng.standard_normal((B, m)))
         ls, us = l_b + d, u_b + d
         res, carry = solve_structured_fast_carry(
-            sgs, a_b, scs, ls, us, carry, backend="pallas", interpret=True)
+            sgs, a_b, scs, ls, us, carry)
         assert np.all(np.asarray(res.status) == 0), res.status
-        ref = solve_structured_fast_batch(
-            sgs, a_b, scs, ls, us, backend="pallas", interpret=True)
+        ref = solve_structured_fast_batch(sgs, a_b, scs, ls, us)
         np.testing.assert_allclose(np.asarray(res.x), np.asarray(ref.x),
                                    atol=1e-7)
         if step > 0:
             assert float(np.mean(np.asarray(res.iterations))) <= 3.0
+
+
+@pytest.mark.parametrize("gtype", [GType.TRI_BLOCK_DIAGONAL,
+                                   GType.BLOCK_ARROW_DOWN,
+                                   GType.BLOCK_ARROW_UP])
+def test_structured_inverse_batch_matches_dense(gtype):
+    """The batched XLA blocked factorization (the structured init) gives
+    G^-1 of the dense assembly for every G type at batch > 1."""
+    from jrlqp_tpu.structured.solver import structured_inverse_batch
+
+    rng = np.random.default_rng(7 + int(gtype))
+    nb, s, B = 4, 5, 3
+    probs = [_rand_structured(rng, nb, s, 2, gtype)[0] for _ in range(B)]
+    diag = jnp.stack([p.diag for p in probs])
+    off = jnp.stack([p.off for p in probs])
+    H, posdef = structured_inverse_batch(diag, off, int(gtype))
+    assert np.asarray(posdef).all()
+    for k, p in enumerate(probs):
+        np.testing.assert_allclose(np.asarray(H[k]),
+                                   np.linalg.inv(np.asarray(p.to_dense())),
+                                   atol=1e-10)
+
+
+def test_structured_inverse_batch_flags_non_spd():
+    """An indefinite lane is flagged (posdef False, identity operator)
+    without touching its batch neighbours."""
+    from jrlqp_tpu.structured.solver import structured_inverse_batch
+
+    rng = np.random.default_rng(5)
+    nb, s, B = 3, 4, 2
+    probs = [_rand_structured(rng, nb, s, 2, GType.TRI_BLOCK_DIAGONAL)[0]
+             for _ in range(B)]
+    diag = jnp.stack([p.diag for p in probs])
+    diag = diag.at[1, 1].add(-10.0 * nb * s * jnp.eye(s))
+    off = jnp.stack([p.off for p in probs])
+    H, posdef = structured_inverse_batch(diag, off,
+                                         int(GType.TRI_BLOCK_DIAGONAL))
+    assert np.asarray(posdef).tolist() == [True, False]
+    np.testing.assert_array_equal(np.asarray(H[1]), np.eye(nb * s))

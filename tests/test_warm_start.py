@@ -237,8 +237,8 @@ def test_warm_start_hint_gated_on_option():
 def _run_in_fresh_process(test_name):
     """Re-exec a test in a fresh interpreter and return True if handled.
 
-    At the tail of a full-suite session the XLA:CPU runtime on this 2-CPU
-    box intermittently segfaults executing large batched programs (native
+    At the tail of a full-suite session the XLA:CPU runtime on a small
+    host intermittently segfaults executing large batched programs (native
     crash inside generated code; never reproducible standalone -- see
     test_warm_start_statistical_50k's note). Process isolation keeps the
     tests' own behavior identical while sidestepping accumulated-session
@@ -249,7 +249,8 @@ def _run_in_fresh_process(test_name):
 
     if os.environ.get("JRLQP_ISOLATED_INNER") == "1":
         return False
-    env = dict(os.environ, JRLQP_ISOLATED_INNER="1")
+    # CPU-only child: never a second process on an accelerator
+    env = dict(os.environ, JRLQP_ISOLATED_INNER="1", JAX_PLATFORMS="cpu")
     r = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "-x",
          f"{__file__}::{test_name}"],
@@ -302,7 +303,7 @@ def test_warm_start_statistical_50k():
     (ref: GoldfarbIdnaniSolverTest.cpp:127-219 -- 10,000 x 5 solves,
     < 0.1% failures): warm-starting from the cold solve's exact active set
     must give 0 iterations and the same solution. Runs the 50k solves as 5
-    vmapped 10k batches (TPU-style execution; seconds, not hours).
+    vmapped 10k batches (batched execution; seconds, not hours).
 
     Runs in a fresh subprocess (see _run_in_fresh_process)."""
     if _run_in_fresh_process("test_warm_start_statistical_50k"):
